@@ -1,0 +1,91 @@
+"""Reverse DDPM sampling in pirorgrad mode, as a plain Python loop.
+
+The counterpart of ``prior_diffuse_tpu/diffusion/sampler.py::reverse_sample``.
+Random draws are explicit tensors (``x_T``, ``noise``), so a caller or a
+test can hand the same numbers to both packages.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from prior_diffuse_tpu_torch.diffusion.schedule import InferenceSchedule
+
+# model_fn(x_t [B, T, F, 2], t [B] float32) -> network output, with the
+# conditioning closed over
+ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def _f32(values) -> list:
+    """Host constants rounded to float32 once, as python floats."""
+    return [float(v) for v in np.asarray(values, np.float64).astype(np.float32)]
+
+
+def is_noiseless(sched: InferenceSchedule) -> bool:
+    """True when every per-step noise scale is 0 (the reference schedules:
+    ``c1 >= 1`` makes ``new_sigma`` vanish), so no step noise is drawn."""
+    return bool((np.abs(np.asarray(sched.new_sigma)) < 1e-30).all())
+
+
+def reverse_sample(
+    model_fn: ModelFn,
+    x_init: torch.Tensor,
+    x_T: Optional[torch.Tensor],
+    sched: InferenceSchedule,
+    sig_mask: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+    zero_init: bool = False,
+    predict: str = "eps",
+) -> torch.Tensor:
+    """Run the reverse chain from ``x_T`` and add ``x_init`` at the end.
+
+    * ``x_T [n_avg, *x_init.shape]``: standard-normal initial draws, one
+      per averaged chain; the result is the mean of the ``n_avg`` chains.
+      Ignored (may be None) with ``zero_init``, which runs one chain from
+      zeros.
+    * ``sig_mask``: PriorGrad per-bin scale; the initial draw and every
+      step noise are multiplied by ``sqrt(sig_mask)``.
+    * ``noise [n_avg, N, *x_init.shape]``: per-step draws in loop order
+      (index 0 is schedule position N-1); required only when the schedule
+      is not noiseless (:func:`is_noiseless`).
+    * ``predict="x0"``: the net predicts the clean-side residual, turned
+      into eps with ``(x - sqrt(ab) * out) / sqrt(1 - ab)``; the constants
+      are derived in float64 and rounded once.
+    """
+    if predict not in ("eps", "x0"):
+        raise ValueError(f"unknown predict parameterization {predict!r}")
+    n_steps = sched.num_steps
+    noiseless = is_noiseless(sched)
+    if not noiseless and noise is None:
+        raise ValueError("this schedule adds step noise: pass `noise`")
+    c1, c2, t_steps = _f32(sched.c1), _f32(sched.c2), _f32(sched.T)
+    new_sigma = _f32(sched.new_sigma)
+    ab = np.asarray(sched.alpha_cum, np.float64)
+    sqrt_ab, rsqrt_1mab = _f32(np.sqrt(ab)), _f32(1.0 / np.sqrt(1.0 - ab))
+    scale = None if sig_mask is None else torch.sqrt(sig_mask)
+    batch = x_init.shape[0]
+
+    starts = [torch.zeros_like(x_init)] if zero_init else list(x_T)
+    chains = []
+    for i, x in enumerate(starts):
+        if scale is not None and not zero_init:
+            x = x * scale
+        for step, n in enumerate(range(n_steps - 1, -1, -1)):
+            t_vec = torch.full((batch,), t_steps[n], dtype=x_init.dtype,
+                               device=x_init.device)
+            out = model_fn(x, t_vec)
+            if predict == "x0":
+                eps = (x - sqrt_ab[n] * out) * rsqrt_1mab[n]
+            else:
+                eps = out
+            x = c1[n] * (x - c2[n] * eps)
+            if not noiseless and n > 0:  # step n = 0 adds no noise
+                z = noise[i, step]
+                x = x + new_sigma[n] * (z if scale is None else z * scale)
+        chains.append(x + x_init)
+    if len(chains) == 1:
+        return chains[0]
+    return torch.stack(chains).mean(dim=0)

@@ -1,0 +1,218 @@
+"""DiffUNet family: the discriminative prior and the residual DDPM denoiser.
+
+The counterparts of ``prior_diffuse_tpu/models/diffunet.py`` (``DiffUNet``,
+``DiffUNet1``), with the same module names, so a flax parameter path
+``core/en/conv1/l/kernel`` is the ``state_dict`` key
+``core.en.conv1.l.weight`` (``convert.py``).  Public forwards take and
+return channels-last ``[B, T, 161, 2]``; inside, tensors are NCHW.
+
+Inference only.  The encoder has two forms of the same math: the
+conv-by-conv modules, and the packed matmul-chain stages of
+``ops/cuda/convblock.py`` (K3 on CUDA tensors), taken when a forward is
+given ``packed`` operands (``convblock.pack_encoder(model.core.en)``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from prior_diffuse_tpu_torch.models import layers as tl
+from prior_diffuse_tpu_torch.ops.cuda.convblock import ENC_KERNELS, encoder_fused
+
+FREQ = 161
+_ENC_CIN = (2, 64, 64, 64, 64)
+
+
+class BiConvGLU(nn.Module):
+    """Bidirectional cross-gated conv GLU."""
+
+    def __init__(self, cin: int, features: int, kernel):
+        super().__init__()
+        self.conv1 = nn.Conv2d(cin, 32, 1)
+        self.l = nn.Conv2d(32, 32, kernel, stride=(1, 2))
+        self.r = nn.Conv2d(32, 32, kernel, stride=(1, 2))
+        self.l_conv = nn.Conv2d(32, 32, 1)
+        self.r_conv = nn.Conv2d(32, 32, 1)
+        self.conv2 = nn.Conv2d(32, features, 1)
+
+    def forward(self, x):
+        x = self.conv1(x)
+        left, right = self.l(x), self.r(x)
+        lmask = torch.sigmoid(self.l_conv(left))
+        rmask = torch.sigmoid(self.r_conv(right))
+        return self.conv2(left * rmask + right * lmask)
+
+
+class BiConvTransGLU(nn.Module):
+    """Transposed variant, optionally time-conditioned (``tp``)."""
+
+    def __init__(self, cin: int, features: int, kernel, time_cond: bool):
+        super().__init__()
+        self.tp = nn.Linear(512, cin) if time_cond else None
+        self.conv1 = nn.ConvTranspose2d(cin, 32, 1)
+        self.l = nn.ConvTranspose2d(32, 32, kernel, stride=(1, 2))
+        self.r = nn.ConvTranspose2d(32, 32, kernel, stride=(1, 2))
+        self.l_conv = nn.ConvTranspose2d(32, 32, 1)
+        self.r_conv = nn.ConvTranspose2d(32, 32, 1)
+        self.conv2 = nn.ConvTranspose2d(32, features, 1)
+
+    def forward(self, x, temb):
+        if self.tp is not None:
+            x = x + self.tp(temb)[:, :, None, None]
+        x = self.conv1(x)
+        left, right = self.l(x), self.r(x)
+        lmask = torch.sigmoid(self.l_conv(left))
+        rmask = torch.sigmoid(self.r_conv(right))
+        return self.conv2(left * rmask + right * lmask)
+
+
+class Residual(nn.Module):
+    """Gated dilated conv1d residual block on ``[B, 256, T]``."""
+
+    def __init__(self, dilation: int):
+        super().__init__()
+        pad = 2 * dilation
+        self.conv1 = nn.Conv1d(256, 64, 1)
+        self.main_prelu = nn.PReLU()
+        self.main_bn = nn.BatchNorm1d(64)
+        self.main_conv = nn.Conv1d(64, 64, 5, dilation=dilation, padding=pad)
+        self.mask_prelu = nn.PReLU()
+        self.mask_bn = nn.BatchNorm1d(64)
+        self.mask_conv = nn.Conv1d(64, 64, 5, dilation=dilation, padding=pad)
+        self.out_prelu = nn.PReLU()
+        self.out_bn = nn.BatchNorm1d(64)
+        self.out_conv = nn.Conv1d(64, 256, 1)
+
+    def forward(self, x):
+        skip = x
+        x = self.conv1(x)
+        main = self.main_conv(self.main_bn(self.main_prelu(x)))
+        mask = torch.sigmoid(self.mask_conv(self.mask_bn(self.mask_prelu(x))))
+        x = self.out_conv(self.out_bn(self.out_prelu(main * mask)))
+        return x + skip
+
+
+class TCM(nn.Module):
+    """Six dilated residual blocks, dilations 1..32."""
+
+    def __init__(self):
+        super().__init__()
+        for i, d in enumerate([1, 2, 4, 8, 16, 32]):
+            setattr(self, f"residual{i + 1}", Residual(d))
+
+    def forward(self, x):
+        for i in range(6):
+            x = getattr(self, f"residual{i + 1}")(x)
+        return x
+
+
+class Encoder(nn.Module):
+    """5-stage causal encoder; freq 161 -> 79 -> 39 -> 19 -> 9 -> 4.  With
+    ``time_cond`` each stage adds ``tp{i}(temb)`` to its padded input."""
+
+    def __init__(self, time_cond: bool):
+        super().__init__()
+        for i, (cin, kf) in enumerate(zip(_ENC_CIN, ENC_KERNELS), start=1):
+            if time_cond:
+                setattr(self, f"tp{i}", nn.Linear(512, cin))
+            setattr(self, f"conv{i}", BiConvGLU(cin, 64, (2, kf)))
+            setattr(self, f"bn{i}", nn.BatchNorm2d(64))
+            setattr(self, f"prelu{i}", nn.PReLU())
+
+    def forward(self, x, temb=None, packed=None):
+        """``x [B, C, T, F]`` -> ``(x, skips)``, NCHW.  With ``packed``
+        (``convblock.pack_encoder``) the stages run fused (``encoder_fused``)."""
+        if packed is not None:
+            x, skips = encoder_fused(x.permute(0, 2, 3, 1).contiguous(),
+                                     packed, temb)
+            return x.permute(0, 3, 1, 2), [s.permute(0, 3, 1, 2) for s in skips]
+        skips = []
+        for i in range(1, 6):
+            x = tl.pad_time_causal(x, 1)
+            tp = getattr(self, f"tp{i}", None)
+            if tp is not None:
+                x = x + tp(temb)[:, :, None, None]
+            x = getattr(self, f"conv{i}")(x)
+            x = getattr(self, f"prelu{i}")(getattr(self, f"bn{i}")(x))
+            skips.append(x)
+        return x, skips
+
+
+class Decoder(nn.Module):
+    """Real-or-imag decoder branch with skip concats and time chomp."""
+
+    def __init__(self, time_cond: bool):
+        super().__init__()
+        for i in range(5, 0, -1):
+            last = i == 1
+            setattr(self, f"de{i}", BiConvTransGLU(
+                128, 1 if last else 64, (2, 5) if last else (2, 3), time_cond))
+            if not last:
+                setattr(self, f"bn{i}", nn.BatchNorm2d(64))
+                setattr(self, f"prelu{i}", nn.PReLU())
+
+    def forward(self, x, skips, temb):
+        for i, skip in zip(range(5, 0, -1), reversed(skips)):
+            x = torch.cat([x, skip], dim=1)
+            x = tl.chomp_time_end(getattr(self, f"de{i}")(x, temb), 1)
+            if i > 1:
+                x = getattr(self, f"prelu{i}")(getattr(self, f"bn{i}")(x))
+        return x
+
+
+class UNetCore(nn.Module):
+    """Encoder, three TCMs over the c-major flattened bottleneck, and the
+    real/imag decoders."""
+
+    def __init__(self, time_cond: bool):
+        super().__init__()
+        self.en = Encoder(time_cond)
+        self.tcm1, self.tcm2, self.tcm3 = TCM(), TCM(), TCM()
+        self.de_real = Decoder(time_cond)
+        self.de_imag = Decoder(time_cond)
+
+    def forward(self, x, temb=None, packed=None):
+        """``x [B, C, T, 161]`` -> ``[B, 2, T, 161]``."""
+        if x.shape[-1] != FREQ:
+            # the transposed convs rebuild 161 bins with no output padding
+            # (4 -> 9 -> 19 -> 39 -> 79 -> 161); other widths do not invert
+            raise ValueError(f"DiffUNet needs {FREQ} frequency bins, got {x.shape[-1]}")
+        x, skips = self.en(x, temb, packed)
+        b, c, t, f = x.shape  # c = 64, f = 4
+        # reference flatten order is c-major: [B, C, T, F] -> [B, C*F, T]
+        flat = x.permute(0, 1, 3, 2).reshape(b, c * f, t)
+        flat = self.tcm3(self.tcm2(self.tcm1(flat)))
+        x = flat.reshape(b, c, f, t).permute(0, 1, 3, 2)
+        real = self.de_real(x, skips, temb)
+        imag = self.de_imag(x, skips, temb)
+        return torch.cat([real, imag], dim=1)
+
+
+class DiffUNet(nn.Module):
+    """Discriminative prior; ``[B, T, 161, 2] -> [B, T, 161, 2]``."""
+
+    def __init__(self):
+        super().__init__()
+        self.core = UNetCore(time_cond=False)
+
+    def forward(self, x, packed=None):
+        return self.core(x.permute(0, 3, 1, 2), None, packed).permute(0, 2, 3, 1)
+
+
+class DiffUNet1(nn.Module):
+    """Residual DDPM denoiser eps_theta(x_t, x_init, t).
+
+    ``x_t [B, T, 161, 2]``, ``x_init [B, T, 161, cond_channels]``
+    (2, or 4 for the ``cond_noisy`` conditioner), ``t [B]``."""
+
+    def __init__(self, num_steps: int = 50, cond_channels: int = 2):
+        super().__init__()
+        self.preprocess = nn.Conv2d(2 + cond_channels, 2, 1)
+        self.time_embedding = tl.TimeEmbedding(num_steps)
+        self.core = UNetCore(time_cond=True)
+
+    def forward(self, x, x_init, t, packed=None):
+        x = self.preprocess(torch.cat([x, x_init], dim=-1).permute(0, 3, 1, 2))
+        temb = self.time_embedding(t)
+        return self.core(x, temb, packed).permute(0, 2, 3, 1)

@@ -1,0 +1,64 @@
+"""Building blocks of the DiffUNet family that ``torch.nn`` lacks.
+
+The counterparts of ``prior_diffuse_tpu/models/layers.py``.  Its PReLU,
+inference BatchNorm (eps 1e-5), conv1d/conv2d and ConvTranspose2d are
+``nn.PReLU``, ``nn.BatchNorm1d/2d``, ``nn.Conv1d/2d`` and
+``nn.ConvTranspose2d`` here (``convert.py`` maps the parameters).  Inside
+the models tensors are NCHW ``[B, C, T, F]``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def time_embedding_table(max_steps: int) -> np.ndarray:
+    """``[max_steps, 128]`` sin/cos table of ``t * 10^(d * 4 / 63)``.
+
+    At phases of ~5e5 rad one f32 ulp moves sin() by up to ~0.06, so the
+    table is built exactly as the JAX package builds it: exponent in f32,
+    pow in f64 rounded to f32, phase product in f32, sin/cos in f64 of the
+    f32 phase, rounded to f32."""
+    steps = np.arange(max_steps, dtype=np.float32)[:, None]
+    dims = np.arange(64, dtype=np.float32)[None, :]
+    exp = dims * np.float32(4.0) / np.float32(63.0)
+    pow_ = np.power(10.0, exp.astype(np.float64)).astype(np.float32)
+    phase = (steps * pow_).astype(np.float64)
+    return np.concatenate([np.sin(phase), np.cos(phase)], axis=1).astype(np.float32)
+
+
+class TimeEmbedding(nn.Module):
+    """DiffWave timestep embedding: table lookup with linear interpolation
+    for fractional ``t``, then two Linear -> SiLU layers to 512."""
+
+    def __init__(self, max_steps: int):
+        super().__init__()
+        self.register_buffer(
+            "table", torch.from_numpy(time_embedding_table(max_steps)),
+            persistent=False)
+        self.proj1 = nn.Linear(128, 512)
+        self.proj2 = nn.Linear(512, 512)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        """``t [B]`` float (fractional allowed) or integer -> ``[B, 512]``."""
+        if t.is_floating_point():
+            low = torch.floor(t).long()
+            high = torch.ceil(t).long()
+            frac = (t - low.to(t.dtype))[:, None]
+            x = self.table[low] + (self.table[high] - self.table[low]) * frac
+        else:
+            x = self.table[t]
+        return F.silu(self.proj2(F.silu(self.proj1(x))))
+
+
+def pad_time_causal(x: torch.Tensor, amount: int = 1) -> torch.Tensor:
+    """Zero-pad ``amount`` frames at the start of the time axis of NCHW."""
+    return F.pad(x, (0, 0, amount, 0))
+
+
+def chomp_time_end(x: torch.Tensor, amount: int = 1) -> torch.Tensor:
+    """Drop ``amount`` frames from the end of the time axis of NCHW."""
+    return x[:, :, :-amount] if amount else x
