@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port on one GPU: build, check, serve.
+"""Drive the PyTorch + CUDA port on one GPU: build, check, serve, train.
 
     python3 chip_smoke.py
 
 Phases (each passes or ends the script with a non-zero exit):
 
 0. a CUDA card is present; print its name and power limit; TF32 off;
-1. build the kernels of ``prior_diffuse_tpu_torch/csrc`` (nvcc, sm_90a);
+1. build the kernels of ``prior_diffuse_tpu_torch/csrc`` (nvcc, sm_90a,
+   one process per source);
 2. each kernel against its plain PyTorch version on the card, on the same
    inputs, at the shapes of the serving path (batch 8 x 3 s): K1 STFT and
    K2 ISTFT on ``[8, 48000]``, K3 at the five encoder stages of both nets
@@ -18,7 +19,18 @@ Phases (each passes or ends the script with a non-zero exit):
    fast-6 schedule, f32, plain and ``--sigma`` modes; output finite and
    ``[8, 48000]``, equal to the same ``Enhancer`` run through the plain
    versions on the card, and launch counts K1 = 1, K2 = 1, K3 = 35;
-4. five requests of 1-4 s through ``serving.enhance.enhance_files``.
+4. five requests of 1-4 s through ``serving.enhance.enhance_files``;
+5. training at full width: ``ComplexDDPMTrainer`` of ``conf/diff.yml``
+   (batch 6 x 48000, ``--joint --sigma``, weights from a seed) on a
+   synthetic corpus of 24 + 8 utterances of 3-4 s.  K1 against its plain
+   version at ``[6, 48000]``; one train step through K1 against the same
+   step through the plain STFT; 10 timed steps (K1 = 2 launches a step);
+   ``evaluate()`` (K1 = 2, K2 = 2, K3 = 35 a cv batch), then K2 and K3
+   against their plain versions at the trained weights' eval shapes; a
+   checkpoint restored into a fresh trainer takes the same next step;
+6. the entry point: ``cli.main`` trains 2 epochs on that corpus and writes
+   its log and checkpoints, then ``--generate`` writes one wav per test
+   utterance.
 
 It prints a JSON line of per-kernel results before the last line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -26,10 +38,14 @@ its last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import glob
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from unittest import mock
@@ -46,6 +62,20 @@ KERNEL_RTOL = 1e-5
 # Whole serving path: 35 K3 calls and 6 chain steps carry those
 # differences through 7 UNet forwards and the squaring of decompression.
 PATH_RTOL = 1e-3
+# One train step through K1 against the same step through the plain STFT:
+# the losses, and the gradients and Adam updates of each net (relative L2).
+# Adam's first step is about lr * sign(g): where |g| is float32 rounding
+# (a conv bias that feeds a BatchNorm has a gradient of 0 in exact
+# arithmetic) a sum in another order flips the sign and moves the update
+# by up to 2 * lr.  So the updates are held elementwise to 2 * lr, and in
+# L2 over the elements whose gradient has the same sign in both runs and
+# |g| >= 100 * eps (1e-6); the elements of opposite sign must be rounding
+# noise: at most 1e-3 of the net's gradient norm.
+STEP_LOSS_RTOL = 1e-4
+STEP_UPDATE_RTOL = 1e-3
+STEADY_GRAD = 1e-6
+TRAIN_BATCH, CORPUS = 6, (24, 8)  # conf/diff.yml's batch; train, test utterances
+PARAMS = {"dis": 1_662_565, "ddpm": 2_780_273}  # published DiffUNet, DiffUNet1
 
 
 def fail(msg: str) -> None:
@@ -194,30 +224,38 @@ def check_kernels(device, nets):
                      "plain_ms": cuda_ms(lambda: kstft.istft_plain(spec, length=LENGTH))}
 
     g = torch.Generator(device=device).manual_seed(2)
-    worst, k3_ms, k3_plain_ms = 0.0, 0.0, 0.0
+    worst = 0.0
     for name, net in zip(("DiffUNet", "DiffUNet1"), nets):
-        packed = cb.pack_encoder(net.core.en)
         temb = None
         if name == "DiffUNet1":
             t = torch.rand(BATCH, generator=g, device=device) * 40.0  # fractional t
             temb = net.time_embedding(t)
         x = torch.randn(BATCH, T_FRAMES, 161, 2, generator=g, device=device)
-        for i, (ops, tp) in enumerate(packed, start=1):
-            xin, bias_b, pad = cb.stage_inputs(x, ops, tp, temb)
-            want = cb.enc_stage_plain(xin, ops, bias_b, pad)
-            err = expect_close(f"K3 {name} stage {i} {tuple(xin.shape)} pad={pad}",
-                               cb.enc_stage(xin, ops, bias_b, pad), want)
-            ms = cuda_ms(lambda: cb.enc_stage(xin, ops, bias_b, pad))
-            plain_ms = cuda_ms(lambda: cb.enc_stage_plain(xin, ops, bias_b, pad))
-            print(f"    {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-            worst = max(worst, err)
-            if name == "DiffUNet1":
-                k3_ms += ms
-                k3_plain_ms += plain_ms
-            x = want  # both versions see the same input at the next stage
+        err, k3_ms, k3_plain_ms = check_encoder(name, cb.pack_encoder(net.core.en), x, temb)
+        worst = max(worst, err)
     # K3's time: the five stages of one DiffUNet1 forward
     rows["enc_stage"] = {"max_abs_err": worst, "ms": k3_ms, "plain_ms": k3_plain_ms}
     return rows
+
+
+def check_encoder(name, packed, x, temb):
+    """K3 against its plain version at the five stages of one encoder, from
+    its input ``x [B, T, 161, C]``; returns the largest error and the
+    kernel's and plain version's times summed over the stages."""
+    from prior_diffuse_tpu_torch.ops.cuda import convblock as cb
+
+    worst, ms_sum, plain_sum = 0.0, 0.0, 0.0
+    for i, (ops, tp) in enumerate(packed, start=1):
+        xin, bias_b, pad = cb.stage_inputs(x, ops, tp, temb)
+        want = cb.enc_stage_plain(xin, ops, bias_b, pad)
+        err = expect_close(f"K3 {name} stage {i} {tuple(xin.shape)} pad={pad}",
+                           cb.enc_stage(xin, ops, bias_b, pad), want)
+        ms = cuda_ms(lambda: cb.enc_stage(xin, ops, bias_b, pad))
+        plain_ms = cuda_ms(lambda: cb.enc_stage_plain(xin, ops, bias_b, pad))
+        print(f"    {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+        worst, ms_sum, plain_sum = max(worst, err), ms_sum + ms, plain_sum + plain_ms
+        x = want  # both versions see the same input at the next stage
+    return worst, ms_sum, plain_sum
 
 
 def check_edge_shapes(device, nets):
@@ -315,7 +353,7 @@ def layer_times(enh, wav, card):
     c = enh.cfg.diffusion.scale_c
     with torch.no_grad():
         feat = compress_spec(kstft.stft(wav), "sqrt")
-        pack_dis, pack_ddpm = enh._packed()
+        pack_dis, pack_ddpm = enh.packed_encoders()
         x_init = enh.dis(feat, packed=pack_dis) / c
         t = torch.full((BATCH,), float(enh.sched.T[-1]), device=wav.device)
         x = torch.randn_like(x_init)
@@ -352,6 +390,326 @@ def serve_requests(device, nets):
           f"lengths {lengths} -> ok ({wall * 1e3:.1f} ms wall incl. host)", flush=True)
 
 
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def expect_counts(what: str, want: dict) -> dict:
+    got = read_counts()
+    print(f"launches in {what}: {got}", flush=True)
+    if got != want:
+        fail(f"launch counts in {what}: {got}, expected {want}")
+    return got
+
+
+def metric_records(log_dir: str) -> list:
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def finite(values) -> bool:
+    return bool(np.isfinite(np.asarray(list(values), np.float64)).all())
+
+
+def write_train_corpus(root: str) -> str:
+    """24 train and 8 test utterances of 3-4 s (speech-like, 0-15 dB SNR)."""
+    from prior_diffuse_tpu_torch.data.synthetic import write_corpus_speechlike
+
+    return write_corpus_speechlike(os.path.join(root, "corpus"), n_train=CORPUS[0],
+                                   n_test=CORPUS[1], min_len=48000, max_len=64000, seed=8)
+
+
+def one_step(tr, batch, plain: bool = False) -> dict:
+    """One ``_train_step`` (through the plain STFT if ``plain``); returns the
+    losses and, per net, the flat gradient and parameter update."""
+    import torch
+
+    before = {n: torch.cat([p.detach().flatten() for p in m.parameters()])
+              for n, m in tr.nets.items()}
+    if plain:
+        with plain_versions():
+            out = tr._train_step(*batch)
+    else:
+        out = tr._train_step(*batch)
+    torch.cuda.synchronize()
+    res = {"loss": [float(v) for v in out[:3]], "grad": {}, "update": {}}
+    for n, m in tr.nets.items():
+        res["grad"][n] = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                                    .flatten() for p in m.parameters()])
+        res["update"][n] = torch.cat([p.detach().flatten() for p in m.parameters()]) - before[n]
+    return res
+
+
+def compare_steps(label: str, tr, got: dict, ref: dict) -> None:
+    """Fail unless two runs of one train step agree (STEP_* bounds)."""
+    import torch
+
+    rel = lambda a, b: float(torch.linalg.vector_norm(a - b)
+                             / torch.clamp(torch.linalg.vector_norm(b), min=1e-30))
+    for name, a, b in zip(("loss", "loss_dis", "loss_ddpm"), got["loss"], ref["loss"]):
+        print(f"{label}: {name} {a:.7e} vs {b:.7e}", flush=True)
+        if not (finite([a, b]) and abs(a - b) <= STEP_LOSS_RTOL * abs(b)):
+            fail(f"{label}: {name} {a} vs {b}")
+    for n in tr.nets:
+        lr = tr.opts[f"opt_{n}"].param_groups[0]["lr"]
+        g, g_ref = got["grad"][n], ref["grad"][n]
+        du, ref_u = got["update"][n], ref["update"][n]
+        flips = torch.sign(g) != torch.sign(g_ref)
+        steady = ~flips & (g_ref.abs() >= STEADY_GRAD)
+        g_rel, u_rel = rel(g, g_ref), rel(du[steady], ref_u[steady])
+        u_max = float((du - ref_u).abs().max())
+        # the share of the gradient norm at the elements of opposite sign
+        flip_share = rel(torch.where(flips, 0.0, g_ref), g_ref)
+        print(f"{label}: {n}: grad rel L2 {g_rel:.3e}; update rel L2 {u_rel:.3e} over "
+              f"{float(steady.float().mean()) * 100:.2f} % of elements "
+              f"({rel(du, ref_u):.3e} over all); gradient signs differ at "
+              f"{int(flips.sum())} of {flips.numel()}, {flip_share:.3e} of the gradient "
+              f"norm; max|diff| {u_max / lr:.3f} lr (bounds {STEP_UPDATE_RTOL:g}, "
+              f"{STEP_UPDATE_RTOL:g}, 2 lr)", flush=True)
+        if not (g_rel <= STEP_UPDATE_RTOL and u_rel <= STEP_UPDATE_RTOL and u_max <= 2 * lr
+                and flip_share <= STEP_UPDATE_RTOL):
+            fail(f"{label}: {n} updates disagree")
+
+
+def step_through_k1_and_plain(tr, batch) -> None:
+    """From one state, one train step through K1 and the same step through
+    the plain STFT (the same q-sample draws: the generator is restored)."""
+    snap = copy.deepcopy(tr.ckpt_payload())
+    reset_counts()
+    got = one_step(tr, batch)
+    expect_counts("one train step", {"stft": 2, "istft": 0, "enc_stage": 0})
+    tr.restore_payload(copy.deepcopy(snap))
+    ref = one_step(tr, batch, plain=True)
+    expect_counts("the plain-STFT step", {"stft": 2, "istft": 0, "enc_stage": 0})
+    compare_steps("train step K1 vs plain STFT", tr, got, ref)
+
+
+def timed_steps(tr, batches, card) -> dict:
+    """10 train steps timed with CUDA events after 2 warm-up steps, without
+    the group gradient norms (``train_ddpm`` takes them on 1 step in
+    ``grad_log_every``); returns the launch counts of one step."""
+    import torch
+
+    losses = []
+
+    def step():
+        out = tr._train_step(*batches[len(losses) % len(batches)], norms=False)
+        losses.append(torch.stack(out[:3]))
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(step, iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    n = len(losses)
+    expect_counts(f"{n} train steps", {"stft": 2 * n, "istft": 0, "enc_stage": 0})
+    if not bool(torch.isfinite(torch.stack(losses)).all()):
+        fail("non-finite train loss")
+    wall = []
+    for i in range(5):  # host clock, each step ending in a scalar readback
+        t0 = time.perf_counter()
+        float(tr._train_step(*batches[i % len(batches)], norms=False)[0])
+        wall.append((time.perf_counter() - t0) * 1e3)
+    print(f"train step [joint, sigma] batch {TRAIN_BATCH} x {LENGTH}, f32: {ms:.3f} ms/step "
+          f"(CUDA events, mean of 10), {TRAIN_BATCH / (ms / 1e3):.2f} utterances/s, "
+          f"peak memory {peak / 2**20:.1f} MiB; host clock {np.median(wall):.3f} ms/step "
+          f"(median of 5, {min(wall):.3f}-{max(wall):.3f}); losses of the last step "
+          f"{[round(float(v), 5) for v in losses[-1]]}; card {card}", flush=True)
+    return {"stft": 2, "istft": 0, "enc_stage": 0}
+
+
+def eval_and_kernels(tr, card) -> tuple:
+    """``evaluate()`` over the cv split, then K2 and K3 against their plain
+    versions at the trained weights' eval shapes; returns the launch
+    counts of one cv batch and the kernel rows."""
+    import torch
+
+    from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
+    from prior_diffuse_tpu_torch.signal.compress import decompress_spec
+    from prior_diffuse_tpu_torch.training.base import spec_features
+
+    n_cv = len(tr.cv_loader)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cv_loss = tr.evaluate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect_counts(f"evaluate() over {n_cv} cv batch(es)",
+                  {"stft": 2 * n_cv, "istft": 2 * n_cv, "enc_stage": 35 * n_cv})
+    recs = metric_records(tr.run.log_dir)
+    diag = [r for r in recs if "test_prior_mse" in r][-1]
+    ev = [r for r in recs if "test_loss" in r][-1]
+    keys = ["test_prior_mse", "test_res_energy_true", "test_res_energy_sampled",
+            "test_res_cos", "test_chain_mse"]
+    scores = [f"test_mean_{m}" for m in ("csig", "cbak", "covl", "pesq", "ssnr", "stoi")]
+    if not finite([cv_loss, *(diag[k] for k in keys), *(ev[k] for k in scores)]):
+        fail(f"non-finite evaluation: {diag} {ev}")
+    batch = next(iter(tr.cv_loader))
+    noisy, clean, frames = tr.put_batch(batch.noisy, batch.clean, batch.frame_nums)
+    ms = cuda_ms(lambda: tr._eval_step(noisy, clean, frames), iters=3, warmup=1)
+    print(f"evaluate(): cv loss {cv_loss:.5f}, " + ", ".join(
+        f"{k[5:]} {diag[k]:.5f}" for k in keys[:4]) + ", " + ", ".join(
+        f"{k[10:]} {ev[k]:.3f}" for k in scores) + f" (pesq {ev['pesq_mode']}); "
+        f"{wall / n_cv * 1e3:.1f} ms wall per cv batch incl. host scoring, eval step "
+        f"{ms:.3f} ms (CUDA events) on {tuple(noisy.shape)}; card {card}", flush=True)
+
+    rows = {}
+    feat, label = spec_features(noisy, tr.cfg), spec_features(clean, tr.cfg)
+    spec = decompress_spec(label, tr.cfg.feat_type).contiguous()
+    length = (spec.shape[1] - 1) * 160
+    err = expect_close(f"K2 istft {tuple(spec.shape)} length {length}",
+                       kstft.istft(spec, length), kstft.istft_plain(spec, length=length))
+    rows["istft"] = {"shape": list(spec.shape), "max_abs_err": err,
+                     "ms": cuda_ms(lambda: kstft.istft(spec, length)),
+                     "plain_ms": cuda_ms(lambda: kstft.istft_plain(spec, length=length))}
+    tr.dis.eval()
+    tr.ddpm.eval()
+    pack_dis, pack_ddpm = tr.enhancer.packed_encoders()
+    x_init = tr.dis(feat, packed=pack_dis) / tr.c
+    g = torch.Generator(device=feat.device).manual_seed(9)
+    x_t = torch.randn(x_init.shape, generator=g, device=feat.device)
+    t = torch.full((feat.shape[0],), float(tr.enhancer.sched.T[0]), device=feat.device)
+    x_ddpm = tr.ddpm.preprocess(torch.cat([x_t, x_init], dim=-1).permute(0, 3, 1, 2))
+    e_dis, _, _ = check_encoder("DiffUNet (trained)", pack_dis, feat, None)
+    e_ddpm, k3_ms, k3_plain_ms = check_encoder(
+        "DiffUNet1 (trained)", pack_ddpm, x_ddpm.permute(0, 2, 3, 1).contiguous(),
+        tr.ddpm.time_embedding(t))
+    rows["enc_stage"] = {"shape": list(feat.shape), "max_abs_err": max(e_dis, e_ddpm),
+                         "ms": k3_ms, "plain_ms": k3_plain_ms}
+    return {"stft": 2, "istft": 2, "enc_stage": 35}, rows
+
+
+def resume_check(tr, run, exp, batch) -> None:
+    """Save a checkpoint, restore it into a fresh trainer (``--retrain``)
+    and take the next step in both; cuDNN deterministic for this check."""
+    import torch
+
+    from prior_diffuse_tpu_torch.training.ddpm_trainer import ComplexDDPMTrainer
+
+    tr.ckpt.save_epoch(tr.epoch, tr.ckpt_payload())
+    fresh = ComplexDDPMTrainer(dataclasses.replace(run, retrain=True), exp, device=tr.device)
+    if (fresh.epoch, fresh.step) != (tr.epoch + 1, tr.step) or not torch.equal(
+            fresh.gen.get_state(), tr.gen.get_state()):
+        fail("the restored trainer's epoch, step or generator differ")
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref, got = one_step(tr, batch), one_step(fresh, batch)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    exact = got["loss"] == ref["loss"] and all(
+        torch.equal(got[k][n], ref[k][n]) for k in ("grad", "update") for n in tr.nets)
+    print(f"checkpoint restored into a fresh trainer: next step bit-exact: {exact}", flush=True)
+    compare_steps("next step after restore", tr, got, ref)
+
+
+def train_phase(device, card, root: str, corpus: str):
+    """Phase 5; returns the launch counts of one train step and of one cv
+    batch's evaluation, and the kernel rows at the slice's shapes."""
+    import torch
+
+    from prior_diffuse_tpu_torch.config import RunConfig, load_experiment
+    from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
+    from prior_diffuse_tpu_torch.training.ddpm_trainer import ComplexDDPMTrainer
+
+    exp = load_experiment(os.path.join(ROOT, "conf", "diff.yml"))
+    if (exp.train.batch_size, exp.train.chunk_length) != (TRAIN_BATCH, LENGTH):
+        fail(f"conf/diff.yml: batch {exp.train.batch_size} x {exp.train.chunk_length}")
+    run = RunConfig(seed=7, joint=True, sigma=True, data_root=corpus,
+                    assets=os.path.join(root, "assets"))
+    tr = ComplexDDPMTrainer(run, exp, device=device)
+    n_params = {n: sum(p.numel() for p in m.parameters()) for n, m in tr.nets.items()}
+    print(f"trainer: DiffUNet {n_params['dis']:,} + DiffUNet1 {n_params['ddpm']:,} "
+          f"parameters, batch {TRAIN_BATCH} x {LENGTH}, lr {exp.optim.lr:g} / "
+          f"{exp.optim_ddpm.lr:g}, joint, sigma", flush=True)
+    if n_params != PARAMS:
+        fail(f"parameter counts {n_params}, expected {PARAMS}")
+    batches = [tr.put_batch(b.noisy, b.clean, b.frame_nums) for b in tr.tr_loader]
+    if len(batches) != CORPUS[0] // TRAIN_BATCH:
+        fail(f"{len(batches)} train batches")
+
+    noisy = batches[0][0]
+    want = kstft.stft_plain(noisy)
+    rows = {"stft": {"shape": list(noisy.shape),
+                     "max_abs_err": expect_close(f"K1 stft {tuple(noisy.shape)}",
+                                                 kstft.stft(noisy), want),
+                     "ms": cuda_ms(lambda: kstft.stft(noisy)),
+                     "plain_ms": cuda_ms(lambda: kstft.stft_plain(noisy))}}
+    step_through_k1_and_plain(tr, batches[0])
+    step_counts = timed_steps(tr, batches, card)
+    eval_counts, eval_rows = eval_and_kernels(tr, card)
+    rows.update(eval_rows)
+    resume_check(tr, run, exp, batches[1])
+    return step_counts, eval_counts, rows
+
+
+def cli_phase(root: str, corpus: str, card) -> tuple:
+    """Phase 6: ``cli.main`` trains 2 epochs, then ``--generate``; returns
+    the launch counts of both runs."""
+    import torch
+
+    from prior_diffuse_tpu_torch import cli
+    from prior_diffuse_tpu_torch.data.wavio import read_wav
+
+    with open(os.path.join(ROOT, "conf", "diff.yml")) as f:
+        text = f.read()
+    if "n_epochs: 50" not in text:
+        fail("conf/diff.yml has no 'n_epochs: 50' line")
+    conf = os.path.join(root, "diff_2_epochs.yml")
+    with open(conf, "w") as f:
+        f.write(text.replace("n_epochs: 50", "n_epochs: 2"))
+    assets = os.path.join(root, "cli")
+    args = ["--config", conf, "--joint", "--data-root", corpus, "--assets", assets,
+            "--seed", "11"]
+    n_steps, n_cv = 2 * (CORPUS[0] // TRAIN_BATCH), CORPUS[1] // TRAIN_BATCH
+    print(f"cli.main {' '.join(args)}", flush=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train = expect_counts("cli.main (2 epochs)", {"stft": 2 * (n_steps + 2 * n_cv),
+                                                  "istft": 4 * n_cv, "enc_stage": 70 * n_cv})
+    recs = metric_records(os.path.join(assets, "log", "diff"))
+    steps = [r for r in recs if "loss_sum" in r]
+    evals = [r for r in recs if "test_loss" in r]
+    if len(steps) != n_steps or len(evals) != 2 or not finite(
+            [r[k] for r in steps for k in ("loss_sum", "dis_loss", "ddpm_loss")]
+            + [r["test_loss"] for r in evals]):
+        fail(f"cli log: {len(steps)} train records, {len(evals)} eval records")
+    ckpt = os.path.join(assets, "checkpoint", "diff")
+    for path in ("epochs/0.pt", "epochs/1.pt", "best.pt"):
+        if not os.path.exists(os.path.join(ckpt, path)):
+            fail(f"cli: no checkpoint {path}")
+    step_ms = [r["step_time_ms"] for r in steps]
+    print(f"cli.main: {n_steps} steps and 2 evaluations in {wall:.1f} s wall; step "
+          f"{np.median(step_ms):.3f} ms median on the host clock ({min(step_ms):.3f}-"
+          f"{max(step_ms):.3f}); cv loss {[round(r['test_loss'], 5) for r in evals]}; "
+          f"card {card}", flush=True)
+
+    reset_counts()
+    cli.main(args + ["--generate"])
+    torch.cuda.synchronize()
+    n_gen = -(-CORPUS[1] // TRAIN_BATCH)
+    generate = expect_counts("cli.main --generate",
+                             {"stft": n_gen, "istft": n_gen, "enc_stage": 35 * n_gen})
+    ins = sorted(glob.glob(os.path.join(corpus, "noisy_testset_wav", "*.wav")))
+    outs = sorted(glob.glob(os.path.join(assets, "wav", "diff", "*.wav")))
+    if [os.path.basename(p) for p in outs] != [os.path.basename(p) for p in ins]:
+        fail(f"--generate wrote {len(outs)} wavs for {len(ins)} inputs")
+    for i, o in zip(ins, outs):
+        x, y = read_wav(i)[0], read_wav(o)[0]
+        if y.shape != x.shape or not np.isfinite(y).all() or not np.abs(y).max() > 0:
+            fail(f"--generate: {o} has {y.shape} for {x.shape}, or no finite signal")
+    print(f"cli.main --generate: {len(outs)} wavs of {[len(read_wav(p)[0]) for p in outs]} "
+          f"samples, finite, at the inputs' lengths", flush=True)
+    return train, generate
+
+
 def main() -> None:
     import torch
 
@@ -385,8 +743,13 @@ def main() -> None:
     nets = seeded_nets(0, device)
     rows = check_kernels(device, nets)
     check_edge_shapes(device, nets)
-    counts = run_main_path(device, nets, card)
+    paths = {"serve_batch": run_main_path(device, nets, card)}
     serve_requests(device, nets)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        corpus = write_train_corpus(root)
+        paths["train_step"], paths["evaluate_cv_batch"], train_rows = train_phase(
+            device, card, root, corpus)
+        paths["cli_train"], paths["cli_generate"] = cli_phase(root, corpus, card)
 
     meta = {
         "stft": ("cuda", "prior_diffuse_tpu_torch/csrc/stft.cu",
@@ -396,8 +759,12 @@ def main() -> None:
         "enc_stage": ("cuda", "prior_diffuse_tpu_torch/csrc/enc_chain.cu",
                       "prior_diffuse_tpu/ops/pallas/convblock_kernel.py:109"),
     }
+    # launches: the entry point's run (cli.main: 2 epochs, then --generate);
+    # rows: the serving shapes (batch 8 x 3 s), then the training slice's
     kernels = [{"name": name, "route": route, "source": src, "replaces": rep,
-                "launches": counts[name], **rows[name]}
+                "launches": paths["cli_train"][name] + paths["cli_generate"][name],
+                "launches_by_path": {p: c[name] for p, c in paths.items()},
+                **rows[name], "train_slice": train_rows[name]}
                for name, (route, src, rep) in meta.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

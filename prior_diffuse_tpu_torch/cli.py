@@ -1,0 +1,93 @@
+"""Command-line entry point.
+
+The counterpart of ``prior_diffuse_tpu/cli.py`` (reference ``main.py:20-41``):
+
+    python -m prior_diffuse_tpu_torch.cli --trainer ComplexDDPMTrainer \\
+        --config conf/diff.yml [--joint] [--sigma] [--retrain] [--eval] [--generate]
+
+with assets under ``<assets>/{log,checkpoint,wav}/<doc>`` and data under
+``--data-root`` (``{noisy,clean}_{trainset,testset}_wav``).  ``--device``
+names the torch device (``cuda`` by default; there is no fallback).  The
+flags of the JAX CLI that the port does not run yet raise
+``NotImplementedError``: other trainers, ``--draw``, ``--profile-steps``
+and ``--wandb``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+
+from prior_diffuse_tpu_torch.config import RunConfig, load_experiment
+from prior_diffuse_tpu_torch.utils.logging import MetricsLogger, setup_logging
+
+TRAINERS = ("ComplexDDPMTrainer",)
+
+
+def parse_args(argv=None):
+    """-> ``(RunConfig, use_wandb, device)``; sets up logging."""
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--seed", type=int, default=1234, help="Random seed")
+    p.add_argument("--trainer", type=str, default="ComplexDDPMTrainer",
+                   help=f"One of: {', '.join(TRAINERS)}")
+    p.add_argument("--config", type=str, default="conf/diff.yml",
+                   help="Path to the experiment YAML")
+    p.add_argument("--verbose", type=str, default="info")
+    p.add_argument("--doc", type=str, default="diff")
+    p.add_argument("--assets", type=str, default="assets_dpm")
+    p.add_argument("--data-root", type=str, default="data")
+    p.add_argument("--device", type=str, default="cuda", help="torch device")
+    p.add_argument("--generate", action="store_true", help="Run enhancement")
+    p.add_argument("--retrain", action="store_true", help="Resume from checkpoint")
+    p.add_argument("--joint", action="store_true", help="Joint dis+DDPM training")
+    p.add_argument("--eval", action="store_true", help="Evaluation only")
+    p.add_argument("--sigma", action="store_true", help="PriorGrad sigma conditioning")
+    p.add_argument("--noisy", action="store_true")
+    p.add_argument("--draw", action="store_true", help="Eval/plot from best checkpoint")
+    p.add_argument("--wandb", action="store_true", help="Mirror metrics to wandb")
+    p.add_argument("--profile-steps", type=int, default=0,
+                   help="Trace the first N train steps")
+    a = p.parse_args(argv)
+    run = RunConfig(
+        seed=a.seed, trainer=a.trainer, config=a.config, doc=a.doc,
+        assets=a.assets, generate=a.generate, retrain=a.retrain,
+        joint=a.joint, eval=a.eval, sigma=a.sigma, noisy=a.noisy,
+        draw=a.draw, profile_steps=a.profile_steps, data_root=a.data_root,
+    )
+    setup_logging(run.log_dir, a.verbose)
+    return run, a.wandb, a.device
+
+
+def main(argv=None):
+    run, use_wandb, device = parse_args(argv)
+    if run.trainer not in TRAINERS:
+        raise NotImplementedError(
+            f"trainer {run.trainer!r} is not ported yet (ROADMAP Queue 1 item 10)")
+    if run.draw:
+        raise NotImplementedError("--draw (draw_audio, viz.py) is not ported yet "
+                                  "(ROADMAP Queue 1 item 12)")
+    if run.profile_steps:
+        raise NotImplementedError("--profile-steps is not ported yet "
+                                  "(ROADMAP Queue 1 item 14)")
+    if use_wandb:
+        raise NotImplementedError("--wandb is not ported yet (ROADMAP Queue 1 item 12)")
+    from prior_diffuse_tpu_torch.training.ddpm_trainer import ComplexDDPMTrainer
+
+    exp = load_experiment(run.config)
+    logging.info("Run = %s", dataclasses.asdict(run))
+    logging.info("Experiment = %s", dataclasses.asdict(exp))
+    metrics = MetricsLogger(run.log_dir)
+    try:
+        trainer = ComplexDDPMTrainer(run, exp, device=device, metrics_logger=metrics)
+        if run.generate:
+            trainer.generate_wav(load_pre_train=True)
+        else:
+            trainer.train_ddpm()
+    finally:
+        metrics.close()
+
+
+if __name__ == "__main__":
+    main()

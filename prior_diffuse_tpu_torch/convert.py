@@ -18,7 +18,7 @@ the same in both packages; the conventions that differ
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,31 +84,38 @@ def flax_to_state_dict(model: nn.Module, variables) -> Dict[str, torch.Tensor]:
     return out
 
 
+def flax_key(model: nn.Module, key: str) -> Optional[Tuple[str, Tuple[str, ...]]]:
+    """``(collection, path)`` of a ``state_dict`` key in the flax variable
+    tree, e.g. ``core.en.bn1.weight`` -> ``("params", ("core", "en", "bn1",
+    "BatchNorm_0", "scale"))``; None for ``num_batches_tracked``."""
+    *mod_path, name = key.split(".")
+    if name == "num_batches_tracked":
+        return None
+    module = model.get_submodule(".".join(mod_path))
+    if isinstance(module, nn.modules.batchnorm._BatchNorm):
+        if name in _STATS.values():
+            return "batch_stats", (*mod_path, _BN, "mean" if name == "running_mean" else "var")
+        return "params", (*mod_path, _BN, "scale" if name == "weight" else "bias")
+    if isinstance(module, nn.PReLU):
+        return "params", (*mod_path, "alpha")
+    return "params", (*mod_path, "kernel" if name == "weight" else name)
+
+
 def state_dict_to_flax(model: nn.Module, state_dict) -> dict:
-    """The flax variable tree ``{"params", "batch_stats"}`` of a ``state_dict``."""
+    """The flax variable tree ``{"params", "batch_stats"}`` of a ``state_dict``
+    (or of any mapping of its keys to parameter-shaped tensors, such as
+    Adam's moments)."""
     tree = {"params": {}, "batch_stats": {}}
     for key, tensor in state_dict.items():
-        *mod_path, name = key.split(".")
-        if name == "num_batches_tracked":
+        found = flax_key(model, key)
+        if found is None:
             continue
-        module = model.get_submodule(".".join(mod_path))
+        collection, path = found
         value = tensor.detach().cpu().numpy()
-        collection, path = "params", list(mod_path)
-        if isinstance(module, nn.modules.batchnorm._BatchNorm):
-            path.append(_BN)
-            if name in ("running_mean", "running_var"):
-                collection = "batch_stats"
-                leaf = "mean" if name == "running_mean" else "var"
-            else:
-                leaf = "scale" if name == "weight" else "bias"
-        elif isinstance(module, nn.PReLU):
-            leaf = "alpha"
-        elif name == "weight":
-            leaf, value = "kernel", _kernel_to_flax(module, value)
-        else:
-            leaf = name
+        if path[-1] == "kernel":
+            value = _kernel_to_flax(model.get_submodule(key.rsplit(".", 1)[0]), value)
         node = tree[collection]
-        for p in path:
+        for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[leaf] = np.array(value, order="C")
+        node[path[-1]] = np.array(value, order="C")
     return tree

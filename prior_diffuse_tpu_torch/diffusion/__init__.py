@@ -1,1 +1,1 @@
-"""Diffusion core of the serving path: schedule, sigma mask, reverse chain."""
+"""Diffusion core: schedule, q-sample and sigma mask, reverse chain."""

@@ -6,10 +6,11 @@ The counterparts of ``prior_diffuse_tpu/models/diffunet.py`` (``DiffUNet``,
 ``core.en.conv1.l.weight`` (``convert.py``).  Public forwards take and
 return channels-last ``[B, T, 161, 2]``; inside, tensors are NCHW.
 
-Inference only.  The encoder has two forms of the same math: the
-conv-by-conv modules, and the packed matmul-chain stages of
-``ops/cuda/convblock.py`` (K3 on CUDA tensors), taken when a forward is
-given ``packed`` operands (``convblock.pack_encoder(model.core.en)``).
+The encoder has two forms of the same math: the conv-by-conv modules,
+which train, and the packed matmul-chain stages of
+``ops/cuda/convblock.py`` (K3 on CUDA tensors, inference only), taken
+when a forward is given ``packed`` operands
+(``convblock.pack_encoder(model.core.en)``).
 """
 
 from __future__ import annotations
@@ -75,13 +76,13 @@ class Residual(nn.Module):
         pad = 2 * dilation
         self.conv1 = nn.Conv1d(256, 64, 1)
         self.main_prelu = nn.PReLU()
-        self.main_bn = nn.BatchNorm1d(64)
+        self.main_bn = tl.BatchNorm1d(64)
         self.main_conv = nn.Conv1d(64, 64, 5, dilation=dilation, padding=pad)
         self.mask_prelu = nn.PReLU()
-        self.mask_bn = nn.BatchNorm1d(64)
+        self.mask_bn = tl.BatchNorm1d(64)
         self.mask_conv = nn.Conv1d(64, 64, 5, dilation=dilation, padding=pad)
         self.out_prelu = nn.PReLU()
-        self.out_bn = nn.BatchNorm1d(64)
+        self.out_bn = tl.BatchNorm1d(64)
         self.out_conv = nn.Conv1d(64, 256, 1)
 
     def forward(self, x):
@@ -117,13 +118,16 @@ class Encoder(nn.Module):
             if time_cond:
                 setattr(self, f"tp{i}", nn.Linear(512, cin))
             setattr(self, f"conv{i}", BiConvGLU(cin, 64, (2, kf)))
-            setattr(self, f"bn{i}", nn.BatchNorm2d(64))
+            setattr(self, f"bn{i}", tl.BatchNorm2d(64))
             setattr(self, f"prelu{i}", nn.PReLU())
 
     def forward(self, x, temb=None, packed=None):
         """``x [B, C, T, F]`` -> ``(x, skips)``, NCHW.  With ``packed``
         (``convblock.pack_encoder``) the stages run fused (``encoder_fused``)."""
         if packed is not None:
+            if self.training:
+                raise ValueError("packed encoder stages fold the running BN "
+                                 "statistics: inference only")
             x, skips = encoder_fused(x.permute(0, 2, 3, 1).contiguous(),
                                      packed, temb)
             return x.permute(0, 3, 1, 2), [s.permute(0, 3, 1, 2) for s in skips]
@@ -149,7 +153,7 @@ class Decoder(nn.Module):
             setattr(self, f"de{i}", BiConvTransGLU(
                 128, 1 if last else 64, (2, 5) if last else (2, 3), time_cond))
             if not last:
-                setattr(self, f"bn{i}", nn.BatchNorm2d(64))
+                setattr(self, f"bn{i}", tl.BatchNorm2d(64))
                 setattr(self, f"prelu{i}", nn.PReLU())
 
     def forward(self, x, skips, temb):

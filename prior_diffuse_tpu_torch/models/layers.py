@@ -1,10 +1,11 @@
 """Building blocks of the DiffUNet family that ``torch.nn`` lacks.
 
 The counterparts of ``prior_diffuse_tpu/models/layers.py``.  Its PReLU,
-inference BatchNorm (eps 1e-5), conv1d/conv2d and ConvTranspose2d are
-``nn.PReLU``, ``nn.BatchNorm1d/2d``, ``nn.Conv1d/2d`` and
-``nn.ConvTranspose2d`` here (``convert.py`` maps the parameters).  Inside
-the models tensors are NCHW ``[B, C, T, F]``.
+conv1d/conv2d and ConvTranspose2d are ``nn.PReLU``, ``nn.Conv1d/2d`` and
+``nn.ConvTranspose2d`` here (``convert.py`` maps the parameters); its
+BatchNorm is :class:`BatchNorm1d` / :class:`BatchNorm2d`, which keep
+flax's train-mode statistics.  Inside the models tensors are NCHW
+``[B, C, T, F]``.
 """
 
 from __future__ import annotations
@@ -52,6 +53,42 @@ class TimeEmbedding(nn.Module):
         else:
             x = self.table[t]
         return F.silu(self.proj2(F.silu(self.proj1(x))))
+
+
+class _FlaxBatchStats:
+    """Train mode as ``flax.linen.BatchNorm`` computes it (``momentum=0.9``,
+    eps 1e-5; ``models/layers.py::BatchNorm`` of the JAX package): the
+    batch variance is the *biased* one, ``E[x^2] - E[x]^2`` clipped at 0,
+    and it is that variance that enters ``running_var`` (torch's own
+    BatchNorm stores the unbiased one).  The running statistics move by
+    ``0.1`` of the batch statistics; ``num_batches_tracked`` counts the
+    updates, which also marks the module as changed for whoever caches
+    operands folded from it (``Enhancer.packed_encoders``).  Eval mode is
+    torch's (running statistics)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        dims = [0, *range(2, x.ndim)]
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(m * mean)
+            self.running_var.mul_(1.0 - m).add_(m * var)
+            self.num_batches_tracked.add_(1)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return (x - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
+
+
+class BatchNorm1d(_FlaxBatchStats, nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` with flax's train-mode statistics."""
+
+
+class BatchNorm2d(_FlaxBatchStats, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's train-mode statistics."""
 
 
 def pad_time_causal(x: torch.Tensor, amount: int = 1) -> torch.Tensor:

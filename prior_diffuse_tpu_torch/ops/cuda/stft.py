@@ -61,8 +61,18 @@ def _device_operands(device: torch.device):
     return put(stft_matrix_np()), put(inv), put(env)
 
 
+def check_no_grad(x: torch.Tensor) -> None:
+    """K1 has no backward (nor had the TPU kernel): it is fed data, never
+    parameters.  An input that needs a gradient would silently lose it,
+    so it is refused, on every device alike."""
+    if x.requires_grad and torch.is_grad_enabled():
+        raise ValueError("the STFT kernel has no backward: pass an input that "
+                         "does not require grad, or run under torch.no_grad()")
+
+
 def stft(x: torch.Tensor) -> torch.Tensor:
     """Centred STFT ``[B, L] -> [B, L // 160 + 1, 161, 2]`` (K1 on CUDA)."""
+    check_no_grad(x)
     if not on_cuda(x):
         return stft_plain(x)
     if x.ndim != 2:

@@ -1,8 +1,9 @@
 """Whole-file enhancement: host normalisation and length bucketing.
 
 The counterpart of ``prior_diffuse_tpu/serving/enhance.py``
-(``enhance_files``, ``enhance_waveform``).  Files are length-sorted into
-batches of ``batch_size`` rows; a batch is padded to a rung of a
+(``enhance_files``, ``enhance_waveform``, ``enhance_directory``).  Files
+are length-sorted into batches of ``batch_size`` rows; a batch is padded
+to a rung of a
 geometric (x1.5) ladder of ``bucket_samples`` multiples and its row count
 to a power of two, which bounds the set of batch shapes a directory
 produces.  Each wav is RMS-normalised on the host, enhanced, cut back to
@@ -11,11 +12,16 @@ its length and de-normalised.
 
 from __future__ import annotations
 
+import glob
+import logging
+import os
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from prior_diffuse_tpu_torch.data.wavio import read_wav, write_wav
 from prior_diffuse_tpu_torch.signal.normalize import rms_scale
 
 
@@ -67,3 +73,26 @@ def enhance_waveform(enhancer, wav: np.ndarray,
                      generator: torch.Generator) -> np.ndarray:
     """Enhance one waveform (normalise, enhance, restore the scale)."""
     return enhance_files(enhancer, [wav], generator)[0]
+
+
+def enhance_directory(enhancer, data_path: str, out_dir: str,
+                      generator: torch.Generator) -> float:
+    """Enhance every wav under ``data_path`` into ``out_dir`` (same names,
+    PCM16); returns the real-time factor on the host clock (seconds of
+    audio per second of wall time, decode and write excluded)."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = sorted(glob.glob(os.path.join(data_path, "*.wav")))
+    if not paths:
+        raise FileNotFoundError(f"no wavs under {data_path}")
+    sr = enhancer.cfg.train.sample_rate
+    wavs = [read_wav(p, sr)[0] for p in paths]
+    t0 = time.perf_counter()
+    enhanced = enhance_files(enhancer, wavs, generator)
+    wall = time.perf_counter() - t0
+    for p, w in zip(paths, enhanced):
+        write_wav(os.path.join(out_dir, os.path.basename(p)), w, sr)
+    audio_sec = sum(len(w) for w in wavs) / sr
+    rtf = audio_sec / wall if wall > 0 else float("inf")
+    logging.info("enhanced %d files (%.1f s audio) in %.2f s -> RTF %.1fx",
+                 len(paths), audio_sec, wall, rtf)
+    return rtf

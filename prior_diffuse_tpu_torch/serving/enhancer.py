@@ -12,7 +12,9 @@ same order, in float32, without a trainer:
 5. multiply by ``c``, decompress, ISTFT (K2) to the input length.
 
 Every encoder stage of the 7 forwards is K3, on operands packed from the
-current weights (repacked whenever a parameter changes).
+current weights (repacked whenever a parameter or BN statistic changes).
+Steps 2-4 are :meth:`Enhancer.chain`, which the trainer's evaluation
+runs on its spectra too.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from prior_diffuse_tpu_torch.diffusion.sampler import is_noiseless, reverse_samp
 from prior_diffuse_tpu_torch.diffusion.schedule import inference_schedule
 from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
 from prior_diffuse_tpu_torch.ops.cuda.convblock import pack_encoder
-from prior_diffuse_tpu_torch.signal.compress import compress_spec, decompress_spec
+from prior_diffuse_tpu_torch.signal.compress import decompress_spec
+from prior_diffuse_tpu_torch.training.base import spec_features
 
 
 class Enhancer:
@@ -57,7 +60,7 @@ class Enhancer:
         self._pack_key = None
         self._packs = None
 
-    def _packed(self):
+    def packed_encoders(self):
         """K3 operands of both encoders, repacked when a weight changed
         (an in-place update bumps the tensor's version counter)."""
         key = tuple((t.data_ptr(), t._version)
@@ -78,11 +81,23 @@ class Enhancer:
         The chain's initial draws ``x_T [n_avg, B, T, 161, 2]`` (and step
         noise, for a schedule that has any) come from ``generator``, a
         ``torch.Generator`` on this device, unless ``x_T`` is given."""
-        diff, feat_type = self.cfg.diffusion, self.cfg.train.feat_type
-        c = diff.scale_c
         wav = torch.as_tensor(wav, dtype=torch.float32).to(self.device).contiguous()
-        feat = compress_spec(kstft.stft(wav), feat_type)
-        pack_dis, pack_ddpm = self._packed()
+        est, _ = self.chain(spec_features(wav, self.cfg.train), generator, x_T)
+        spec = decompress_spec(est, self.cfg.train.feat_type)
+        return kstft.istft(spec.contiguous(), wav.shape[-1])
+
+    @torch.no_grad()
+    def chain(self, feat: torch.Tensor, generator: Optional[torch.Generator] = None,
+              x_T: Optional[torch.Tensor] = None):
+        """Compressed noisy spectrum ``feat [B, T, 161, 2]`` -> ``(estimate,
+        x_init)``: the prior, the sigma mask and the reverse chain, with the
+        estimate scaled back by ``c`` (the compressed clean spectrum) and
+        ``x_init`` the prior's output divided by ``c``."""
+        diff = self.cfg.diffusion
+        c = diff.scale_c
+        self.dis.eval()
+        self.ddpm.eval()
+        pack_dis, pack_ddpm = self.packed_encoders()
         x_init = self.dis(feat, packed=pack_dis) / c
         sig = sigma_mask(x_init) if self.sigma else None
         cond = (torch.cat([x_init, feat / c], dim=-1) if diff.cond_noisy
@@ -99,8 +114,7 @@ class Enhancer:
             lambda x, t: self.ddpm(x, cond, t, packed=pack_ddpm),
             x_init, x_T, self.sched, sig_mask=sig, noise=noise,
             zero_init=diff.zero_init, predict=diff.predict)
-        spec = decompress_spec(audio * c, feat_type)
-        return kstft.istft(spec.contiguous(), wav.shape[-1])
+        return audio * c, x_init
 
     def _draw(self, shape, generator):
         if generator is None:

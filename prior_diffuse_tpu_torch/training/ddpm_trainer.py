@@ -1,0 +1,316 @@
+"""ComplexDDPMTrainer — the joint prior + residual DDPM trainer.
+
+The counterpart of ``prior_diffuse_tpu/training/ddpm_trainer.py`` on one
+device, in float32, pirorgrad mode (the ``DiffUNet1`` denoiser), with the
+``cond_noisy``, ``train_t_fast``, ``predict="x0"`` and ``x0_leak_drop``
+extensions.  ``_train_step`` follows the JAX ``_train_step_impl``
+line for line:
+
+* STFT (K1 on CUDA) and compression of the noisy and the clean batch;
+* one train-mode prior forward; its output, detached and divided by
+  ``c``, is ``x_init``; in joint mode the prior's loss uses the output
+  itself (in non-joint mode the prior still runs in train mode and keeps
+  its new BN statistics, but takes no update);
+* q-sample, the train-mode DDPM forward, the eps or x0 target, the
+  sigma-weighted loss under ``--sigma``;
+* ``lam * L_ddpm + L_dis``, one backward, per-group gradient norms, Adam.
+
+The train forwards and backward are plain PyTorch (cuDNN convolutions,
+autograd), as the JAX package leaves them to XLA.  Evaluation and
+``--generate`` run the serving path (``serving.enhancer.Enhancer``): K3
+on packed encoder operands in all 7 forwards of a batch, K2 in scoring.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from prior_diffuse_tpu_torch.config import ExperimentConfig, RunConfig
+from prior_diffuse_tpu_torch.diffusion.qsample import Draws, q_sample, sigma_mask
+from prior_diffuse_tpu_torch.diffusion.schedule import inference_schedule
+from prior_diffuse_tpu_torch.losses import (LOSSES, com_mse_loss, com_mse_sigma_loss,
+                                             frame_mask)
+from prior_diffuse_tpu_torch.metrics.compare import compare_complex
+from prior_diffuse_tpu_torch.models.diffunet import DiffUNet, DiffUNet1
+from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
+from prior_diffuse_tpu_torch.training.base import (TrainerBase, grad_groups,
+                                                   group_grad_norms, spec_features)
+from prior_diffuse_tpu_torch.training.optim import get_lr, set_lr, torch_adam
+from prior_diffuse_tpu_torch.utils.logging import MetricsLogger
+
+
+def seeded_nets(seed: int, num_steps: int, cond_channels: int):
+    """``DiffUNet`` and ``DiffUNet1`` with torch's default initialisation
+    (the reference's own), drawn from ``seed`` without touching the
+    caller's global random state."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return DiffUNet(), DiffUNet1(num_steps, cond_channels=cond_channels)
+
+
+class ComplexDDPMTrainer(TrainerBase):
+    # per-group grad norms go to the JSONL metrics every N steps; the JAX
+    # package computes them inside its train-step jit, the port only on
+    # the steps that log them
+    grad_log_every = 50
+
+    def __init__(self, run: RunConfig, exp: ExperimentConfig, device="cuda",
+                 metrics_logger: Optional[MetricsLogger] = None):
+        diff = exp.diffusion
+        if not diff.pirorgrad:
+            raise NotImplementedError(
+                "deltamu / conditional modes (the Nocon denoiser) are not "
+                "ported yet (ROADMAP Queue 1)")
+        if exp.train.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype {exp.train.compute_dtype!r}: the port trains in "
+                "float32 only; bf16 training is ROADMAP Queue 1")
+        if exp.model.name != "DiffUNet":
+            raise NotImplementedError(
+                f"prior {exp.model.name!r}: the port has the DiffUNet prior only "
+                "(other priors are ROADMAP Queue 1 item 10)")
+        if diff.predict not in ("eps", "x0"):
+            raise ValueError(f"unknown predict {diff.predict!r}")
+        self.x0_leak_drop = float(diff.x0_leak_drop)
+        if self.x0_leak_drop and diff.predict != "x0":
+            raise ValueError("x0_leak_drop requires predict='x0'")
+        if not 0.0 <= self.x0_leak_drop <= 1.0:
+            raise ValueError("x0_leak_drop must be in [0, 1]")
+        super().__init__(run, exp, device, metrics_logger)
+        self.mode = "pirorgrad"
+        self.predict = diff.predict
+        self.cond_noisy = bool(diff.cond_noisy)
+        self.c = diff.scale_c
+        self.num_steps = diff.num_steps
+        dev = self.device
+        self.alpha_bar = torch.tensor(
+            np.cumprod(1.0 - np.asarray(diff.noise_schedule, np.float64)),
+            dtype=torch.float32, device=dev)
+        if diff.train_t_fast:
+            inf = inference_schedule(diff, fast_sampling=True)
+            self.t_grid = torch.tensor(inf.T, dtype=torch.float32, device=dev)
+            self.ab_grid = torch.tensor(inf.alpha_cum, dtype=torch.float32, device=dev)
+        else:
+            self.t_grid = self.ab_grid = None
+        self.loss_fn = LOSSES[self.cfg.loss]
+
+        dis, ddpm = seeded_nets(run.seed, self.num_steps, 4 if self.cond_noisy else 2)
+        # the serving path holds the same modules; it also turns TF32 off
+        # before any train step (f32 means f32, as in the JAX reference)
+        self.enhancer = Enhancer(dis, ddpm, exp, device=dev, sigma=run.sigma)
+        self.dis, self.ddpm = self.enhancer.dis, self.enhancer.ddpm
+        opt_ddpm_cfg = exp.optim_ddpm or exp.optim
+        self.opt_dis = torch_adam(self.dis.parameters(), exp.optim.lr, exp.optim.l2)
+        self.opt_ddpm = torch_adam(self.ddpm.parameters(), opt_ddpm_cfg.lr, opt_ddpm_cfg.l2)
+        self.nets = {"dis": self.dis, "ddpm": self.ddpm}
+        self.opts = {"opt_dis": self.opt_dis, "opt_ddpm": self.opt_ddpm}
+        self.grad_groups = {n: grad_groups(m) for n, m in self.nets.items()}
+        self.gen = torch.Generator(device=dev).manual_seed(run.seed ^ 0x5EED)
+
+        if run.retrain:
+            restored = self.ckpt.restore_latest()
+            if restored is not None:
+                self.restore_payload(restored)
+                last = self.ckpt.latest_epoch()
+                self.epoch = 0 if last is None else last + 1
+                logging.info("resumed at epoch %d (step %d)", self.epoch, self.step)
+
+    # ---- steps --------------------------------------------------------------
+    def _cond(self, feat_sc, x_init):
+        """DDPM conditioner: x_init (pirorgrad), or with ``cond_noisy`` the
+        concat of x_init and the noisy spectrum over c."""
+        return torch.cat([x_init, feat_sc], dim=-1) if self.cond_noisy else x_init
+
+    def _train_step(self, noisy, clean, frame_nums, draws: Optional[Draws] = None,
+                    norms: bool = True):
+        """One train step on device tensors ``noisy, clean [B, L]``,
+        ``frame_nums [B]``; returns ``(total, loss_dis, loss_ddpm, gnorms)``
+        as 0-d tensors, ``gnorms`` the per-group gradient norms (empty
+        unless ``norms``).  The q-sample draws come from ``self.gen`` unless
+        ``draws`` gives them."""
+        cfg, joint, sigma = self.cfg, self.run.joint, self.run.sigma
+        feat = spec_features(noisy, cfg)
+        label = spec_features(clean, cfg)
+        self.dis.train()
+        self.ddpm.train()
+        with torch.enable_grad():
+            with torch.set_grad_enabled(joint):
+                dis_out = self.dis(feat)
+            if joint:
+                loss_dis = self.loss_fn(dis_out, label, frame_nums)
+            else:
+                loss_dis = torch.zeros((), device=self.device)
+            x_init = dis_out.detach() / self.c
+            lbl = label / self.c
+            sig = sigma_mask(x_init) if sigma else None
+            x_t, noise, t = q_sample(
+                lbl, x_init, self.alpha_bar, self.num_steps, self.mode, sig,
+                t_grid=self.t_grid, ab_grid=self.ab_grid,
+                leak_drop=self.x0_leak_drop, generator=self.gen, draws=draws)
+            pred = self.ddpm(x_t, self._cond(feat / self.c, x_init), t)
+            # x0: the residual the sampler adds back onto x_init
+            target = lbl - x_init if self.predict == "x0" else noise
+            if sigma:
+                loss_ddpm = com_mse_sigma_loss(pred, target, frame_nums, sig)
+            else:
+                loss_ddpm = self.loss_fn(pred, target, frame_nums)
+            total = cfg.lam * loss_ddpm + loss_dis
+            self.opt_dis.zero_grad(set_to_none=True)
+            self.opt_ddpm.zero_grad(set_to_none=True)
+            total.backward()
+        gnorms = {}
+        if norms:
+            for n, groups in self.grad_groups.items():
+                gnorms.update(group_grad_norms(groups, n))
+        self.opt_ddpm.step()
+        if joint:
+            self.opt_dis.step()
+        return total.detach(), loss_dis.detach(), loss_ddpm.detach(), gnorms
+
+    @torch.no_grad()
+    def _eval_step(self, noisy, clean, frame_nums, x_T: Optional[torch.Tensor] = None):
+        """The prior and the reverse chain in inference mode on one cv batch;
+        returns ``(audio, label, loss, diag)``: the compressed estimate and
+        label ``[B, T, 161, 2]``, the chain's masked MSE and the residual
+        diagnostics (``prior_mse``, ``res_energy_true``,
+        ``res_energy_sampled``, ``res_cos``), all 0-d tensors."""
+        feat = spec_features(noisy, self.cfg)
+        label = spec_features(clean, self.cfg)
+        audio, x_init = self.enhancer.chain(feat, self.gen, x_T)
+        loss = com_mse_loss(audio, label, frame_nums)
+        # the DDPM's regression target is r_true = label/c - x_init; r_samp
+        # is what the chain adds.  The chain helps iff loss < prior_mse.
+        r_true = label / self.c - x_init
+        r_samp = audio / self.c - x_init
+        m = frame_mask(frame_nums, r_true.shape[1])[:, :, None, None]
+        n_valid = torch.sum(m) * r_true.shape[2] * r_true.shape[3]
+        e_true = torch.sum((r_true * m) ** 2) / n_valid
+        e_samp = torch.sum((r_samp * m) ** 2) / n_valid
+        cos = torch.sum(r_samp * r_true * m) / torch.sqrt(
+            torch.sum((r_samp * m) ** 2) * torch.sum((r_true * m) ** 2) + 1e-20)
+        diag = {
+            "prior_mse": com_mse_loss(x_init * self.c, label, frame_nums),
+            "res_energy_true": e_true,
+            "res_energy_sampled": e_samp,
+            "res_cos": cos,
+        }
+        return audio, label, loss, diag
+
+    # ---- drivers --------------------------------------------------------------
+    def evaluate(self) -> float:
+        losses, results, diags = [], [], []
+        for batch in self.cv_loader:
+            noisy, clean, frames = self.put_batch(batch.noisy, batch.clean,
+                                                  batch.frame_nums)
+            audio, label, loss, diag = self._eval_step(noisy, clean, frames)
+            losses.append(float(loss))
+            diags.append({k: float(v) for k, v in diag.items()})
+            results.append(compare_complex(audio, label, batch.frame_nums,
+                                           self.cfg.feat_type))
+        self.check_cv_nonempty(losses)
+        cv_loss = float(np.mean(losses))
+        diag_mean = {f"test_{k}": float(np.mean([d[k] for d in diags]))
+                     for k in diags[0]}
+        diag_mean["test_chain_mse"] = cv_loss
+        self.metrics.log(diag_mean, step=self.step)
+        logging.info(
+            "residual diag: prior_mse %.5f chain_mse %.5f e_true %.6f "
+            "e_samp %.6f cos %.3f",
+            diag_mean["test_prior_mse"], cv_loss,
+            diag_mean["test_res_energy_true"],
+            diag_mean["test_res_energy_sampled"], diag_mean["test_res_cos"],
+        )
+        self.log_eval("test", cv_loss, np.mean(np.asarray(results), axis=0))
+        return cv_loss
+
+    def _halve_lrs(self):
+        for name, opt in self.opts.items():
+            lr = get_lr(opt) / 2.0
+            set_lr(opt, lr)
+            logging.info("Learning rate of %s adjusted to %f", name, lr)
+
+    def train_ddpm(self, max_epochs: Optional[int] = None,
+                   max_steps: Optional[int] = None):
+        """The reference's main loop: train epochs with a sampling eval after
+        each, LR halving and early stop on plateau, best and per-epoch
+        checkpoints."""
+        n_epochs = max_epochs or self.cfg.n_epochs
+        while self.epoch < n_epochs:
+            logging.info("Epoch %d", self.epoch)
+            if not self.run.eval:
+                for batch in self.tr_loader:
+                    if max_steps is not None and self.step >= max_steps:
+                        return
+                    noisy, clean, frames = self.put_batch(
+                        batch.noisy, batch.clean, batch.frame_nums)
+                    t0 = time.perf_counter()
+                    log_norms = self.step % self.grad_log_every == 0
+                    total, l_dis, l_ddpm, gnorms = self._train_step(
+                        noisy, clean, frames, norms=log_norms)
+                    total = float(total)  # scalar readback: step complete
+                    dt = time.perf_counter() - t0
+                    self.check_nan(total)
+                    rec = {"dis_loss": float(l_dis), "ddpm_loss": float(l_ddpm),
+                           "loss_sum": total, "step_time_ms": dt * 1e3,
+                           "utt_per_sec": self.cfg.batch_size / dt}
+                    rec.update({k: float(v) for k, v in gnorms.items()})
+                    self.metrics.log(rec, step=self.step)
+                    self.step += 1
+            cv_loss = self.evaluate()
+            if self.run.eval:
+                return
+            halve, stop, is_best = self.plateau.update(cv_loss)
+            if halve:
+                self._halve_lrs()
+            payload = self.ckpt_payload()
+            if is_best:
+                logging.info("new best cv loss %.5f; saving best", cv_loss)
+                self.ckpt.save_best(payload)
+            self.ckpt.save_epoch(self.epoch, payload)
+            self.epoch += 1
+            if stop:
+                logging.info("No improvement and apply early stop")
+                break
+
+    def enhance_batch(self, noisy_padded, generator: Optional[torch.Generator] = None):
+        """Enhance an RMS-normalised padded batch ``[B, L] -> [B, L]``
+        through the serving path, drawing from ``generator`` (default: the
+        trainer's own)."""
+        return self.enhancer.enhance_batch(noisy_padded, generator or self.gen)
+
+    def load_best(self) -> bool:
+        restored = self.ckpt.restore_best()
+        if restored is not None:
+            self.restore_payload(restored)
+        return restored is not None
+
+    def generate_wav(self, load_pre_train: bool = True,
+                     data_path: Optional[str] = None,
+                     out_dir: Optional[str] = None,
+                     compare_after: bool = False) -> float:
+        """Enhance every wav of ``data_path`` (default: the noisy test set)
+        into ``out_dir``; returns the real-time factor.  With
+        ``compare_after``, score the output against the clean test set."""
+        from prior_diffuse_tpu_torch.metrics.compare import compare
+        from prior_diffuse_tpu_torch.serving.enhance import enhance_directory
+
+        if load_pre_train:
+            self.load_best()
+        data_path = data_path or f"{self.run.data_root}/noisy_testset_wav"
+        out_dir = out_dir or self.run.generated_wav_dir
+        rtf = enhance_directory(self.enhancer, data_path, out_dir, self.gen)
+        if compare_after:
+            clean_dir = f"{self.run.data_root}/clean_testset_wav"
+            res = np.mean(np.asarray(compare(clean_dir, out_dir)), axis=0)
+            logging.info("ref=%s", clean_dir)
+            logging.info("deg=%s", out_dir)
+            logging.info(
+                "csig:%6.4f cbak:%6.4f covl:%6.4f pesq:%6.4f ssnr:%6.4f stoi:%6.4f",
+                *res,
+            )
+        return rtf

@@ -1,0 +1,57 @@
+"""Structured observability.
+
+The counterpart of ``prior_diffuse_tpu/utils/logging.py``: Python logging
+configured like the reference's ``main.py:53-67`` (stream + file, one
+format) and an append-only JSONL metrics sink.  The JAX package's
+optional wandb mirror is not ported (the CLI refuses ``--wandb``).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from typing import Dict, Optional
+
+
+def setup_logging(log_dir: Optional[str] = None, level: str = "info") -> None:
+    lvl = getattr(logging, level.upper(), logging.INFO)
+    fmt = logging.Formatter("%(levelname)s - %(filename)s - %(asctime)s - %(message)s")
+    root = logging.getLogger()
+    root.setLevel(lvl)
+    if not any(isinstance(h, logging.StreamHandler) for h in root.handlers):
+        h = logging.StreamHandler()
+        h.setFormatter(fmt)
+        root.addHandler(h)
+    if log_dir:
+        os.makedirs(log_dir, exist_ok=True)
+        h = logging.FileHandler(os.path.join(log_dir, "stdout.txt"))
+        h.setFormatter(fmt)
+        root.addHandler(h)
+
+
+class MetricsLogger:
+    """Append-only JSONL metrics (one object per log call)."""
+
+    def __init__(self, log_dir: Optional[str] = None):
+        self._file = None
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+            self._file = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+
+    def log(self, metrics: Dict[str, float], step: Optional[int] = None) -> None:
+        record = {
+            "time": time.time(),
+            **{k: (v if isinstance(v, str) else float(v))
+               for k, v in metrics.items()},
+        }
+        if step is not None:
+            record["step"] = int(step)
+        if self._file:
+            self._file.write(json.dumps(record) + "\n")
+            self._file.flush()
+
+    def close(self) -> None:
+        if self._file:
+            self._file.close()

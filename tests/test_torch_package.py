@@ -1,9 +1,10 @@
 """Package rules of the PyTorch port.
 
-* Every module of ``prior_diffuse_tpu_torch`` imports with jax, flax, yaml
-  and the JAX package blocked: the machine with the GPU has none of them,
-  and this test process imports jax (``conftest.py``), so an accidental
-  import would pass every other test here.
+* Every module of ``prior_diffuse_tpu_torch`` imports with jax, flax, optax,
+  orbax, yaml and the JAX package blocked, the training slice's included,
+  and ``conf/diff.yml`` loads so: the machine with the GPU has none of
+  them, and this test process imports jax (``conftest.py``), so an
+  accidental import would pass every other test here.
 * ``chip_smoke.py`` refuses to run without a CUDA card: it exits non-zero
   within seconds and prints no ``"ok": true`` line.
 """
@@ -34,8 +35,20 @@ _BLOCKED_IMPORT = textwrap.dedent("""
         importlib.import_module(name)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
-    print(len(names))
+    from prior_diffuse_tpu_torch.config import load_experiment
+    exp = load_experiment("conf/diff.yml")
+    assert (exp.train.batch_size, exp.optim_ddpm.lr) == (6, 0.0002), exp
+    print(" ".join(names))
 """)
+
+# the modules of the training slice, each of which must be walked above
+TRAINING_SLICE = [
+    "cli", "config", "losses", "data.dataset", "data.synthetic", "data.wavio",
+    "diffusion.qsample", "metrics.compare", "metrics.composite", "metrics.pesq",
+    "metrics.pesq_np", "metrics.stoi", "serving.enhance", "training.base",
+    "training.checkpoint", "training.ddpm_trainer", "training.optim",
+    "training.plateau", "utils.logging",
+]
 
 
 def test_port_imports_without_jax():
@@ -43,7 +56,10 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=300,
                           env={**os.environ, "PYTHONPATH": ROOT})
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20  # every module was walked
+    walked = set(proc.stdout.split())
+    assert len(walked) >= 42  # every module was walked
+    missing = [m for m in TRAINING_SLICE if f"prior_diffuse_tpu_torch.{m}" not in walked]
+    assert not missing, missing
 
 
 def test_chip_smoke_fails_without_a_card():

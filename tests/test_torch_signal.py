@@ -145,3 +145,17 @@ def test_compress_matches_jax(rng, feat_type):
 def test_rms_scale_matches_jax(rng):
     x = rng.standard_normal((3, 1234)).astype(np.float32) * 0.2
     np.testing.assert_array_equal(normalize.rms_scale(x), jnormalize.rms_scale(x))
+
+
+def test_stft_refuses_an_input_that_needs_a_gradient():
+    """K1 has no backward: the wrapper refuses an input that requires grad
+    while grad mode is on, on every device (here through the same check
+    on a CPU tensor), and takes it under ``torch.no_grad()``."""
+    x = torch.randn(2, 1600, requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        kstft.stft(x)
+    with pytest.raises(ValueError, match="no backward"):
+        kstft.check_no_grad(x)
+    with torch.no_grad():
+        assert kstft.stft(x).shape == (2, 11, 161, 2)
+    kstft.check_no_grad(x.detach())

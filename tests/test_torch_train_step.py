@@ -1,0 +1,299 @@
+"""One train step and one eval step of the port against the JAX trainer (CPU).
+
+Reference: ``prior_diffuse_tpu.training.ComplexDDPMTrainer`` on a
+1-device mesh (``make_mesh(dp=1)``: the default 8-device test mesh would
+zero-pad a batch of 2 to 8 rows, and the pad rows enter the BatchNorm
+batch statistics), on a tiny synthetic corpus, batch 2 x 4800 samples.
+Its initial state is carried into the port's trainer by ``convert.py``;
+both take the same batch, and the port gets the numbers the JAX q-sample
+drew (recomputed from the step key, as ``qsample.py`` splits it).  Each
+configuration compiles the JAX step once, in a module-scoped fixture:
+
+* ``joint_sigma_eps``: the default system (joint, ``--sigma``, eps);
+* ``frozen_x0_leak``: non-joint (frozen prior), ``predict="x0"``,
+  ``x0_leak_drop=1``, plus ``train_t_fast`` and ``cond_noisy``.
+
+Bounds: losses rtol 1e-5; group gradient norms rtol 1e-4; new BN running
+statistics rtol 1e-5; parameter updates at most ``2 * lr`` per element,
+and 1e-4 relative L2 per net over the elements whose gradient is at
+least ``100 * eps`` (1e-6).  Adam's first step is ``lr * g / (|g| +
+eps)``, about ``lr * sign(g)``: where ``|g|`` is within a few ``eps``
+the update follows the sign and size of a gradient that is mostly
+float32 rounding (the bias of a conv that feeds a BatchNorm has a
+gradient of exactly 0 in exact arithmetic; the deep TCM layers of the
+prior see gradients of 1e-8..1e-7 that are sums with cancellation), so
+another summation order moves it by up to ``lr``.  The Adam moments
+(the gradient through some 80 float32 layers, summed in another order)
+to 1e-3 relative L2 per net over those elements, and every element of
+the first moment to 1e-4 x its largest;
+a group norm to rtol 1e-4 or 1e-6 x the net's largest group norm (a
+bias gradient is a sum with cancellation).  Over all elements the
+updates differ by 1e-2..2e-2 relative L2 (the sign flips above), which
+is why the L2 bound is taken over the steady elements.  The eval step
+(prior + fast-6 chain + diagnostics, given the JAX chain's ``x_T``)
+within 2.5e-4 x max|ref|, the bar of ``test_torch_enhance.py``.  The
+learning rates after ``_halve_lrs`` equal JAX's.
+
+Also here: train-mode BatchNorm against flax's (output and running
+statistics, rtol 1e-5), which stock ``torch.nn.BatchNorm`` fails.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import prior_diffuse_tpu.config as jcfg
+from prior_diffuse_tpu.data import synthetic
+from prior_diffuse_tpu.parallel.mesh import make_mesh
+from prior_diffuse_tpu_torch import config as tcfg
+from prior_diffuse_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
+from prior_diffuse_tpu_torch.data.dataset import PairedWavDataset, _collate
+from prior_diffuse_tpu_torch.diffusion.qsample import Draws
+from prior_diffuse_tpu_torch.training.ddpm_trainer import ComplexDDPMTrainer
+
+CHUNK = 4800
+LR_DIS, LR_DDPM = 5e-4, 2e-4
+
+# two torch threads a worker process: see test_torch_trainer.py
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
+CONFIGS = {
+    "joint_sigma_eps": (dict(joint=True, sigma=True), dict()),
+    "frozen_x0_leak": (dict(joint=False, sigma=False),
+                       dict(predict="x0", x0_leak_drop=1.0, train_t_fast=True,
+                            cond_noisy=True)),
+}
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    root = tmp_path_factory.mktemp("corpus")
+    return synthetic.write_corpus(str(root), n_train=2, n_test=2,
+                                  min_len=6000, max_len=9000, seed=5)
+
+
+def _exp(module, diff_kw):
+    return module.ExperimentConfig(
+        train=module.TrainConfig(batch_size=2, n_epochs=1, chunk_length=CHUNK),
+        optim=module.OptimConfig(lr=LR_DIS),
+        optim_ddpm=module.OptimConfig(lr=LR_DDPM),
+        diffusion=module.DiffusionConfig(**diff_kw))
+
+
+def _batch(corpus):
+    ds = PairedWavDataset(f"{corpus}/noisy_trainset_wav", f"{corpus}/clean_trainset_wav",
+                          chunk_length=CHUNK)
+    rng = np.random.default_rng(0)
+    return _collate([ds.load_pair(j, crop=True, rng=rng) for j in range(2)], CHUNK)
+
+
+def _np(tree):
+    return jax.tree.map(np.array, tree)
+
+
+def _adam(opt_state):
+    return next(s for s in opt_state.inner_state if isinstance(s, optax.ScaleByAdamState))
+
+
+def _jax_draws(rng, diff, shape):
+    """The draws of ``prior_diffuse_tpu.diffusion.q_sample``, recomputed."""
+    keys = jax.random.split(rng, 3 if diff.x0_leak_drop > 0 else 2)
+    n_t = len(diff.inference_noise_schedule) if diff.train_t_fast else diff.num_steps
+    idx = jax.random.randint(keys[0], (shape[0],), 0, n_t)
+    normal = jax.random.normal(keys[1], shape, jnp.float32)
+    dropped = (jax.random.bernoulli(keys[2], diff.x0_leak_drop, (shape[0],))
+               if diff.x0_leak_drop > 0 else None)
+    to_t = lambda a: None if a is None else torch.from_numpy(np.array(a))
+    return Draws(to_t(idx).long(), to_t(normal), to_t(dropped))
+
+
+@pytest.fixture(scope="module", params=list(CONFIGS))
+def step_pair(request, corpus, tmp_path_factory):
+    """The JAX step and the port's step from one state on one batch."""
+    from prior_diffuse_tpu.training import ComplexDDPMTrainer as JTrainer
+
+    flags, diff_kw = CONFIGS[request.param]
+    tmp = tmp_path_factory.mktemp(request.param)
+    jrun = jcfg.RunConfig(assets=str(tmp / "jax"), doc="t", data_root=corpus, **flags)
+    jtr = JTrainer(jrun, _exp(jcfg, diff_kw), mesh=make_mesh(dp=1))
+    run = tcfg.RunConfig(assets=str(tmp / "torch"), doc="t", data_root=corpus, **flags)
+    tr = ComplexDDPMTrainer(run, _exp(tcfg, diff_kw), device="cpu")
+    state0 = {k: _np(jtr.state[k]) for k in ("dis", "ddpm")}
+    for name in ("dis", "ddpm"):
+        tr.nets[name].load_state_dict(flax_to_state_dict(tr.nets[name], state0[name]))
+    before = {n: {k: v.clone() for k, v in m.state_dict().items()} for n, m in tr.nets.items()}
+
+    batch = _batch(corpus)
+    rng = jax.random.PRNGKey(11)
+    noisy, clean, frames = jtr.put_batch(batch.noisy, batch.clean, batch.frame_nums)
+    jstate, total, l_dis, l_ddpm, gnorms = jtr._train_step(jtr.state, noisy, clean, frames, rng)
+    t_frames = CHUNK // 160 + 1
+    draws = _jax_draws(rng, jtr.exp.diffusion, (2, t_frames, 161, 2))
+    got = tr._train_step(torch.from_numpy(batch.noisy), torch.from_numpy(batch.clean),
+                         torch.from_numpy(batch.frame_nums).long(), draws=draws)
+    want = (float(total), float(l_dis), float(l_ddpm), {k: float(v) for k, v in gnorms.items()})
+    return dict(name=request.param, flags=flags, jtr=jtr, jstate=jstate, state0=state0,
+                tr=tr, before=before, got=got, want=want, batch=batch)
+
+
+def test_losses_match(step_pair):
+    got, want = step_pair["got"], step_pair["want"]
+    np.testing.assert_allclose([float(v) for v in got[:3]], want[:3], rtol=1e-5, atol=1e-7)
+    if not step_pair["flags"]["joint"]:
+        assert float(got[1]) == 0.0
+
+
+def test_grad_norms_match(step_pair):
+    got, want = step_pair["got"][3], step_pair["want"][3]
+    assert sorted(got) == sorted(want)
+    for k in want:
+        net_max = max(v for n, v in want.items() if n.split("/")[0] == k.split("/")[0])
+        np.testing.assert_allclose(float(got[k]), want[k], rtol=1e-4,
+                                   atol=1e-6 * net_max, err_msg=k)
+
+
+def test_batch_stats_match(step_pair):
+    tr, jstate = step_pair["tr"], step_pair["jstate"]
+    for name in ("dis", "ddpm"):
+        got = state_dict_to_flax(tr.nets[name], tr.nets[name].state_dict())["batch_stats"]
+        want = _np(jstate[name]["batch_stats"])
+        flat_g = jax.tree_util.tree_flatten_with_path(got)[0]
+        flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
+        assert [p for p, _ in flat_g] == [p for p, _ in flat_w]
+        for (path, g), (_, w) in zip(flat_g, flat_w):
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-7, err_msg=f"{name} {path}")
+        # every BN took exactly one batch-statistics update
+        assert all(int(v) == 1 for k, v in tr.nets[name].state_dict().items()
+                   if k.endswith("num_batches_tracked"))
+
+
+def _flat(tree):
+    return np.concatenate([a.ravel() for a in jax.tree.leaves(tree)])
+
+
+def _steady(jax_opt_state):
+    """Elements whose JAX gradient is at least 100 * eps, from the first
+    moment after one step, ``0.1 * (g + l2 * w)``; at least half the net."""
+    steady = np.abs(_flat(_np(_adam(jax_opt_state).mu)) / 0.1) >= 1e-6
+    assert steady.mean() > 0.5
+    return steady
+
+
+def _rel_l2(got, want):
+    return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
+
+
+def test_param_updates_match(step_pair):
+    tr, jstate, state0 = step_pair["tr"], step_pair["jstate"], step_pair["state0"]
+    for name, lr in (("dis", LR_DIS), ("ddpm", LR_DDPM)):
+        net = tr.nets[name]
+        old = _flat(state0[name]["params"])
+        d_want = _flat(_np(jstate[name]["params"])) - old
+        d_got = _flat(state_dict_to_flax(net, net.state_dict())["params"]) - old
+        if name == "dis" and not step_pair["flags"]["joint"]:
+            assert not d_want.any() and not d_got.any()  # the frozen prior
+            continue
+        assert np.abs(d_got - d_want).max() <= 2 * lr, name
+        steady = _steady(jstate["opt_" + name])
+        assert _rel_l2(d_got[steady], d_want[steady]) <= 1e-4, name
+
+
+def test_adam_moments_match(step_pair):
+    tr, jstate = step_pair["tr"], step_pair["jstate"]
+    for name, opt_name in (("dis", "opt_dis"), ("ddpm", "opt_ddpm")):
+        net, opt = tr.nets[name], tr.opts[opt_name]
+        want = _adam(jstate[opt_name])
+        if name == "dis" and not step_pair["flags"]["joint"]:
+            assert not opt.state  # no update, no moments
+            assert int(want.count) == 0
+            continue
+        assert int(want.count) == 1
+        params = dict(net.named_parameters())
+        steady = _steady(jstate[opt_name])
+        for key, jax_tree in (("exp_avg", want.mu), ("exp_avg_sq", want.nu)):
+            got = _flat(state_dict_to_flax(
+                net, {n: opt.state[p][key] for n, p in params.items()})["params"])
+            ref = _flat(_np(jax_tree))
+            assert _rel_l2(got[steady], ref[steady]) <= 1e-3, (name, key)
+            if key == "exp_avg":
+                assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max(), name
+
+
+def test_lr_halving_matches(step_pair):
+    from prior_diffuse_tpu.training.optim import get_lr as jget_lr
+
+    tr, jtr = step_pair["tr"], step_pair["jtr"]
+    jtr.state = step_pair["jstate"]
+    jtr._halve_lrs()
+    tr._halve_lrs()
+    for opt_name in ("opt_dis", "opt_ddpm"):
+        # JAX keeps the rate in float32
+        assert all(np.float32(g["lr"]) == np.float32(jget_lr(jtr.state[opt_name]))
+                   for g in tr.opts[opt_name].param_groups), opt_name
+
+
+@pytest.mark.parametrize("shape", [(4, 8, 64), (2, 4, 5, 64)], ids=["1d", "2d"])
+def test_batchnorm_train_mode_matches_flax(rng, shape):
+    """Train-mode BatchNorm: output and new running statistics equal
+    flax's (biased batch variance into ``running_var``) to rtol 1e-5,
+    where ``torch.nn.BatchNorm`` (unbiased, n = 32 here: 3 % apart) fails."""
+    from prior_diffuse_tpu.models.layers import BatchNorm as JBatchNorm
+    from prior_diffuse_tpu_torch.models import layers as tl
+
+    x = (1.5 * rng.standard_normal(shape) + 0.3).astype(np.float32)  # channels last
+    init_mean = rng.standard_normal(64).astype(np.float32) * 0.1
+    init_var = rng.uniform(0.5, 1.5, 64).astype(np.float32)
+    scale, bias = rng.uniform(0.8, 1.2, 64).astype(np.float32), rng.standard_normal(64).astype(np.float32)
+    variables = {"params": {"BatchNorm_0": {"scale": scale, "bias": bias}},
+                 "batch_stats": {"BatchNorm_0": {"mean": init_mean, "var": init_var}}}
+    y_want, new = JBatchNorm(use_running_average=False).apply(
+        variables, jnp.asarray(x), mutable=["batch_stats"])
+    want_stats = new["batch_stats"]["BatchNorm_0"]
+
+    ours = tl.BatchNorm1d(64) if len(shape) == 3 else tl.BatchNorm2d(64)
+    stock = torch.nn.BatchNorm1d(64) if len(shape) == 3 else torch.nn.BatchNorm2d(64)
+    x_nc = torch.from_numpy(x).movedim(-1, 1)
+    for bn in (ours, stock):
+        with torch.no_grad():
+            bn.weight.copy_(torch.from_numpy(scale))
+            bn.bias.copy_(torch.from_numpy(bias))
+            bn.running_mean.copy_(torch.from_numpy(init_mean))
+            bn.running_var.copy_(torch.from_numpy(init_var))
+        bn.train()
+    y = ours(x_nc).movedim(1, -1)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_want), rtol=1e-5, atol=1e-5)
+    for got, key in ((ours.running_mean, "mean"), (ours.running_var, "var")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want_stats[key]), rtol=1e-5)
+    assert int(ours.num_batches_tracked) == 1
+    stock(x_nc)
+    assert not np.allclose(stock.running_var.numpy(), np.asarray(want_stats["var"]), rtol=1e-5)
+    # eval mode is the running statistics, as flax's use_running_average
+    ours.eval()
+    y_eval = JBatchNorm(use_running_average=True).apply(
+        {"params": variables["params"], "batch_stats": new["batch_stats"]}, jnp.asarray(x))
+    np.testing.assert_allclose(ours(x_nc).movedim(1, -1).detach().numpy(), np.asarray(y_eval),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_eval_step_matches(step_pair):
+    """The eval step after the train step (trained weights, updated BN
+    statistics), on the same batch, with the JAX chain's initial draw."""
+    jtr, tr, batch = step_pair["jtr"], step_pair["tr"], step_pair["batch"]
+    rng = jax.random.PRNGKey(5)
+    noisy, clean, frames = jtr.put_batch(batch.noisy, batch.clean, batch.frame_nums)
+    audio, label, loss, diag = jtr._eval_step(step_pair["jstate"], noisy, clean, frames, rng)
+    x_T = np.array(jax.random.normal(jax.random.split(rng)[0], audio.shape))[None]
+    g_audio, g_label, g_loss, g_diag = tr._eval_step(
+        torch.from_numpy(batch.noisy), torch.from_numpy(batch.clean),
+        torch.from_numpy(batch.frame_nums).long(), x_T=torch.from_numpy(x_T))
+    for got, want in ((g_audio, audio), (g_label, label)):
+        want = np.asarray(want)
+        assert np.abs(got.numpy() - want).max() <= 2.5e-4 * np.abs(want).max()
+    for name, got, want in (("loss", g_loss, loss), *((k, g_diag[k], diag[k]) for k in diag)):
+        # the cosine is a ratio with cancellation: held on its own scale, 1
+        scale = 1.0 if name == "res_cos" else abs(float(want))
+        assert abs(float(got) - float(want)) <= 2.5e-4 * scale, name
+    assert sorted(g_diag) == sorted(diag)
