@@ -11,8 +11,13 @@ Phases (each passes or ends the script with a non-zero exit):
 2. each kernel against its plain PyTorch version on the card, on the same
    inputs, at the shapes of the serving path (batch 8 x 3 s): K1 STFT and
    K2 ISTFT on ``[8, 48000]``, K3 at the five encoder stages of both nets
-   at T = 301 with a per-batch bias; times from CUDA events after warm-up;
-   then off those shapes: batch 1 and 3, odd lengths, 1-3 frames;
+   at T = 301 with a per-batch bias; times from CUDA events after warm-up,
+   device times from ``torch.profiler`` and from CUDA-graph replays; K1
+   and K2 timed in turns against their library yardsticks (``torch.stft``,
+   ``torch.istft``); each kernel's bound (bytes or f32 operations at the
+   H100's published peaks) from the shapes; then off those shapes: batch
+   1 and 3, odd lengths, every K3 stage at 1-3 frames and at frame counts
+   that no time tile divides;
 3. the serving path at full width: ``DiffUNet`` and ``DiffUNet1`` with
    weights drawn from a seeded ``torch.Generator`` (randomised BN
    statistics), ``Enhancer.enhance_batch`` on 8 speech-like 3 s wavs,
@@ -24,7 +29,9 @@ Phases (each passes or ends the script with a non-zero exit):
    (batch 6 x 48000, ``--joint --sigma``, weights from a seed) on a
    synthetic corpus of 24 + 8 utterances of 3-4 s.  K1 against its plain
    version at ``[6, 48000]``; one train step through K1 against the same
-   step through the plain STFT; 10 timed steps (K1 = 2 launches a step);
+   step through the plain STFT (losses and gradients), and through K1 with
+   a wrong window, which that check must reject; 10 timed steps (K1 = 2
+   launches a step);
    ``evaluate()`` (K1 = 2, K2 = 2, K3 = 35 a cv batch), then K2 and K3
    against their plain versions at the trained weights' eval shapes; a
    checkpoint restored into a fresh trainer takes the same next step;
@@ -62,16 +69,25 @@ KERNEL_RTOL = 1e-5
 # Whole serving path: 35 K3 calls and 6 chain steps carry those
 # differences through 7 UNet forwards and the squaring of decompression.
 PATH_RTOL = 1e-3
-# One train step through K1 against the same step through the plain STFT:
-# the losses, and the gradients and Adam updates of each net (relative L2).
-# Adam's first step is about lr * sign(g): where |g| is float32 rounding
-# (a conv bias that feeds a BatchNorm has a gradient of 0 in exact
-# arithmetic) a sum in another order flips the sign and moves the update
-# by up to 2 * lr.  So the updates are held elementwise to 2 * lr, and in
-# L2 over the elements whose gradient has the same sign in both runs and
-# |g| >= 100 * eps (1e-6); the elements of opposite sign must be rounding
-# noise: at most 1e-3 of the net's gradient norm.
+# One train step through K1 against the same step through the plain STFT.
+# The step is chaotic in its STFT's rounding: any change of rounding (an FFT
+# in place of the plain version's float32 GEMM, torch.stft, or the plain
+# STFT times 1 + 1e-8 N(0, 1)) moves a net's gradient up to ~2e-4 relative
+# L2 and Adam's first update (about lr * sign(g)) up to ~1.5e-3 on this
+# batch (tools/kernel_probe.py step).  So the step is held on its losses
+# and on each net's gradient, 5x above that floor; the updates are
+# printed, not bounded.  The check is shown to fail each run: the same
+# step through K1 with the symmetric Hann window in its table (0.6 % of
+# the spectrum) must miss it.
 STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_RTOL = 1e-3
+# A step from a restored checkpoint against the same step in the trainer
+# that saved it (the same STFT, cuDNN deterministic): the losses and
+# gradients as above, and the updates held elementwise to 2 * lr (where
+# |g| is float32 rounding, e.g. a conv bias feeding a BatchNorm, a sum in
+# another order flips its sign) and in L2 over the elements whose gradient
+# has the same sign in both runs and |g| >= 100 * eps (1e-6); the elements
+# of opposite sign must be rounding noise: at most 1e-3 of the gradient norm.
 STEP_UPDATE_RTOL = 1e-3
 STEADY_GRAD = 1e-6
 TRAIN_BATCH, CORPUS = 6, (24, 8)  # conf/diff.yml's batch; train, test utterances
@@ -107,6 +123,113 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def in_turns(kernel, library) -> dict:
+    """Kernel against its library yardstick in turns (kernel, library,
+    library, kernel): ``ms`` and ``library_ms`` are the slower of each pair,
+    ``*_turns`` both readings; the kernel is slower only if it is so in
+    both turns."""
+    k1, l1, l2, k2 = cuda_ms(kernel), cuda_ms(library), cuda_ms(library), cuda_ms(kernel)
+    return {"ms": max(k1, k2), "library_ms": max(l1, l2),
+            "ms_turns": [k1, k2], "library_ms_turns": [l1, l2],
+            "slower_than_library": k1 > l1 and k2 > l2}
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device time per call of ``fn`` from CUDA-graph replays (``calls``
+    calls a graph, ``replays`` replays between two CUDA events), so the
+    host's pace does not enter."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def device_ms(fn, calls: int = 5):
+    """Summed device time (kernels, copies, fills) per call of ``fn`` in ms,
+    from a ``torch.profiler`` pass over ``calls`` calls after a warm-up; a
+    pass that records no device event is repeated (twice at most), then
+    the result is None (not measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / calls / 1e3
+    return None
+
+
+def fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+# Published H100 SXM peaks (dense): f32 outside the tensor cores, TF32 on
+# them, and the HBM3 rate.
+PEAK_F32, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """Least time of the work on the card: the larger of the bytes over the
+    memory rate and the f32 operations over the f32 (non-tensor) peak."""
+    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def fft_flops(frames: int, n: int = 320) -> float:
+    """A real n-point FFT per frame (2.5 n log2 n) plus its window product."""
+    return frames * (2.5 * n * np.log2(n) + n)
+
+
+def stft_bound(b: int, length: int) -> dict:
+    t = length // 160 + 1
+    return bound(fft_flops(b * t), 4 * (b * length + b * t * 161 * 2))
+
+
+def istft_bound(b: int, t: int, length: int) -> dict:
+    # plus the overlap-add and the envelope divide of each output sample
+    return bound(fft_flops(b * t) + 2 * b * length, 4 * (b * t * 161 * 2 + b * length))
+
+
+def enc_stage_work(xin, ops, pad: int) -> tuple:
+    """(operations, bytes) of one encoder stage: per output row the window
+    product [K] x [K, 64], the two 32 x 32 gate blocks and W2 [32, 64];
+    the stage input, operands and output once each."""
+    b, tin, f, c = xin.shape
+    k = ops["kernel_f"]
+    rows = b * (tin - 1 + pad) * ((f - k) // 2 + 1)
+    flops = rows * 2 * (2 * k * c * 64 + 2 * 32 * 32 + 32 * 64)
+    operands = sum(ops[n].numel() for n in ("wmain", "wg", "bg", "w2", "b2", "alpha"))
+    nbytes = 4 * (xin.numel() + operands + b * 64 + rows * 64)
+    return flops, nbytes
 
 
 def max_err(got, want) -> tuple[float, float]:
@@ -213,15 +336,39 @@ def check_kernels(device, nets):
     wav = torch.from_numpy(speechlike(BATCH, LENGTH, 1)).to(device)
     want = kstft.stft_plain(wav)
     err = expect_close(f"K1 stft {tuple(wav.shape)}", kstft.stft(wav), want)
-    rows["stft"] = {"max_abs_err": err, "ms": cuda_ms(lambda: kstft.stft(wav)),
-                    "plain_ms": cuda_ms(lambda: kstft.stft_plain(wav))}
+    window = torch.hann_window(320, device=device)
+    # the one PyTorch call that computes K1's function (a yardstick only)
+    lib_stft = lambda: torch.view_as_real(torch.stft(
+        wav, 320, 160, window=window, center=True, pad_mode="reflect",
+        return_complex=True).transpose(1, 2))
+    expect_close("torch.stft (yardstick)", lib_stft(), want)
+    rows["stft"] = {"max_abs_err": err, **in_turns(lambda: kstft.stft(wav), lib_stft),
+                    "plain_ms": cuda_ms(lambda: kstft.stft_plain(wav)),
+                    "device_ms": device_ms(lambda: kstft.stft(wav)),
+                    "graph_ms": graph_ms(lambda: kstft.stft(wav)),
+                    "library_device_ms": device_ms(lib_stft),
+                    **stft_bound(BATCH, LENGTH)}
 
     spec = want
-    err = expect_close(f"K2 istft {tuple(spec.shape)}", kstft.istft(spec, LENGTH),
-                       kstft.istft_plain(spec, length=LENGTH))
+    ref = kstft.istft_plain(spec, length=LENGTH)
+    err = expect_close(f"K2 istft {tuple(spec.shape)}", kstft.istft(spec, LENGTH), ref)
+    lib_istft = lambda: torch.istft(
+        torch.view_as_complex(spec).transpose(1, 2), 320, 160, window=window,
+        center=True, length=LENGTH)
+    expect_close("torch.istft (yardstick)", lib_istft(), ref)
     rows["istft"] = {"max_abs_err": err,
-                     "ms": cuda_ms(lambda: kstft.istft(spec, LENGTH)),
-                     "plain_ms": cuda_ms(lambda: kstft.istft_plain(spec, length=LENGTH))}
+                     **in_turns(lambda: kstft.istft(spec, LENGTH), lib_istft),
+                     "plain_ms": cuda_ms(lambda: kstft.istft_plain(spec, length=LENGTH)),
+                     "device_ms": device_ms(lambda: kstft.istft(spec, LENGTH)),
+                     "library_device_ms": device_ms(lib_istft),
+                     **istft_bound(BATCH, T_FRAMES, LENGTH)}
+    for name in ("stft", "istft"):
+        r = rows[name]
+        print(f"{name}: {r['ms_turns']} ms (device {fmt(r['device_ms'])}, graph "
+              f"{fmt(r.get('graph_ms'))}) vs library "
+              f"{r['library_ms_turns']} ms (device {fmt(r['library_device_ms'])}); bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); slower than the library: "
+              f"{r['slower_than_library']}", flush=True)
 
     g = torch.Generator(device=device).manual_seed(2)
     worst = 0.0
@@ -231,20 +378,24 @@ def check_kernels(device, nets):
             t = torch.rand(BATCH, generator=g, device=device) * 40.0  # fractional t
             temb = net.time_embedding(t)
         x = torch.randn(BATCH, T_FRAMES, 161, 2, generator=g, device=device)
-        err, k3_ms, k3_plain_ms = check_encoder(name, cb.pack_encoder(net.core.en), x, temb)
+        err, k3 = check_encoder(name, cb.pack_encoder(net.core.en), x, temb)
         worst = max(worst, err)
-    # K3's time: the five stages of one DiffUNet1 forward
-    rows["enc_stage"] = {"max_abs_err": worst, "ms": k3_ms, "plain_ms": k3_plain_ms}
+    # K3's row: the five stages of one DiffUNet1 forward; no single PyTorch
+    # call computes a stage (conv, two 1x1 gate convs, the cross gate, a
+    # 1x1 conv and PReLU), so it has no library yardstick
+    rows["enc_stage"] = {"max_abs_err": worst, **k3, "library_ms": None,
+                         "library_device_ms": None}
     return rows
 
 
 def check_encoder(name, packed, x, temb):
     """K3 against its plain version at the five stages of one encoder, from
-    its input ``x [B, T, 161, C]``; returns the largest error and the
-    kernel's and plain version's times summed over the stages."""
+    its input ``x [B, T, 161, C]``; returns the largest error and a row of
+    the kernel's and plain version's times, its device time and its
+    bounds, summed over the stages."""
     from prior_diffuse_tpu_torch.ops.cuda import convblock as cb
 
-    worst, ms_sum, plain_sum = 0.0, 0.0, 0.0
+    worst, ms_sum, plain_sum, dev_sum, graph_sum, flops, nbytes = (0.0,) * 7
     for i, (ops, tp) in enumerate(packed, start=1):
         xin, bias_b, pad = cb.stage_inputs(x, ops, tp, temb)
         want = cb.enc_stage_plain(xin, ops, bias_b, pad)
@@ -252,10 +403,24 @@ def check_encoder(name, packed, x, temb):
                            cb.enc_stage(xin, ops, bias_b, pad), want)
         ms = cuda_ms(lambda: cb.enc_stage(xin, ops, bias_b, pad))
         plain_ms = cuda_ms(lambda: cb.enc_stage_plain(xin, ops, bias_b, pad))
-        print(f"    {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+        dev = device_ms(lambda: cb.enc_stage(xin, ops, bias_b, pad))
+        gms = graph_ms(lambda: cb.enc_stage(xin, ops, bias_b, pad))
+        f, nb = enc_stage_work(xin, ops, pad)
+        b = bound(f, nb)
+        print(f"    {ms:.4f} ms (device {fmt(dev)}, graph {gms:.4f}), plain {plain_ms:.4f} "
+              f"ms; bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), {f / ms / 1e9:.1f} TFLOP/s",
+              flush=True)
         worst, ms_sum, plain_sum = max(worst, err), ms_sum + ms, plain_sum + plain_ms
+        graph_sum += gms
+        dev_sum = None if dev is None or dev_sum is None else dev_sum + dev
+        flops, nbytes = flops + f, nbytes + nb
         x = want  # both versions see the same input at the next stage
-    return worst, ms_sum, plain_sum
+    row = {"ms": ms_sum, "plain_ms": plain_sum, "device_ms": dev_sum, "graph_ms": graph_sum,
+           **bound(flops, nbytes),
+           # the 3xTF32 split does three TF32 products for each f32 one
+           "bound_3xtf32_ms": 3 * flops / PEAK_TF32 * 1e3}
+    return worst, row
 
 
 def check_edge_shapes(device, nets):
@@ -269,7 +434,7 @@ def check_edge_shapes(device, nets):
     from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
     from prior_diffuse_tpu_torch.signal.stft import _envelope_np
 
-    for b, n in [(1, 161), (3, 16037), (2, 10241)]:
+    for b, n in [(1, 161), (3, 16037), (2, 10241), (1, 48000), (3, 2017)]:
         wav = torch.from_numpy(speechlike(b, n, n)).to(device)
         spec = kstft.stft_plain(wav)
         expect_close(f"K1 stft {tuple(wav.shape)}", kstft.stft(wav), spec)
@@ -286,10 +451,12 @@ def check_edge_shapes(device, nets):
                          kstft.istft_plain(spec, length=out_len) * env)
     g = torch.Generator(device=device).manual_seed(3)
     packed = cb.pack_encoder(nets[1].core.en)
-    temb = nets[1].time_embedding(torch.tensor([7.25], device=device))
-    for t_frames in (1, 3):
-        x = torch.randn(1, t_frames, 161, 2, generator=g, device=device)
-        for i, (ops, tp) in enumerate(packed[:2], start=1):
+    # every stage at 1-3 frames, batch 1 and 3, and frame counts that are
+    # not a multiple of any stage's time tile
+    for b, t_frames in [(1, 1), (3, 2), (1, 3), (3, 37), (1, 150)]:
+        temb = nets[1].time_embedding(torch.rand(b, generator=g, device=device) * 40.0)
+        x = torch.randn(b, t_frames, 161, 2, generator=g, device=device)
+        for i, (ops, tp) in enumerate(packed, start=1):
             xin, bias_b, pad = cb.stage_inputs(x, ops, tp, temb)
             x = cb.enc_stage_plain(xin, ops, bias_b, pad)
             expect_close(f"K3 stage {i} {tuple(xin.shape)} pad={pad}",
@@ -364,8 +531,11 @@ def layer_times(enh, wav, card):
             "ddpm_step": cuda_ms(lambda: enh.ddpm(x, x_init, t, packed=pack_ddpm), iters=10),
             "istft": cuda_ms(lambda: kstft.istft(spec, LENGTH)),
         }
+        device = {"prior": device_ms(lambda: enh.dis(feat, packed=pack_dis)),
+                  "ddpm_step": device_ms(lambda: enh.ddpm(x, x_init, t, packed=pack_ddpm))}
     print(f"layers (ms per batch of {BATCH} x {LENGTH // SR} s): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in times.items()) + f"; card {card}", flush=True)
+        f"{k} {v:.3f}" for k, v in times.items()) + "; device ms (profiler) " + ", ".join(
+        f"{k} {fmt(v)}" for k, v in device.items()) + f"; card {card}", flush=True)
 
 
 def serve_requests(device, nets):
@@ -445,16 +615,19 @@ def one_step(tr, batch, plain: bool = False) -> dict:
     return res
 
 
-def compare_steps(label: str, tr, got: dict, ref: dict) -> None:
-    """Fail unless two runs of one train step agree (STEP_* bounds)."""
+def compare_steps(label: str, tr, got: dict, ref: dict, updates: bool) -> list:
+    """Two runs of one train step against the STEP_* bounds (the updates
+    only if ``updates``); returns what misses them."""
     import torch
 
     rel = lambda a, b: float(torch.linalg.vector_norm(a - b)
                              / torch.clamp(torch.linalg.vector_norm(b), min=1e-30))
+    misses = []
     for name, a, b in zip(("loss", "loss_dis", "loss_ddpm"), got["loss"], ref["loss"]):
-        print(f"{label}: {name} {a:.7e} vs {b:.7e}", flush=True)
+        print(f"{label}: {name} {a:.7e} vs {b:.7e} (rel {abs(a - b) / abs(b):.3e}, "
+              f"bound {STEP_LOSS_RTOL:g})", flush=True)
         if not (finite([a, b]) and abs(a - b) <= STEP_LOSS_RTOL * abs(b)):
-            fail(f"{label}: {name} {a} vs {b}")
+            misses.append(f"{name} {a} vs {b}")
     for n in tr.nets:
         lr = tr.opts[f"opt_{n}"].param_groups[0]["lr"]
         g, g_ref = got["grad"][n], ref["grad"][n]
@@ -465,20 +638,29 @@ def compare_steps(label: str, tr, got: dict, ref: dict) -> None:
         u_max = float((du - ref_u).abs().max())
         # the share of the gradient norm at the elements of opposite sign
         flip_share = rel(torch.where(flips, 0.0, g_ref), g_ref)
-        print(f"{label}: {n}: grad rel L2 {g_rel:.3e}; update rel L2 {u_rel:.3e} over "
-              f"{float(steady.float().mean()) * 100:.2f} % of elements "
-              f"({rel(du, ref_u):.3e} over all); gradient signs differ at "
+        print(f"{label}: {n}: grad rel L2 {g_rel:.3e} (bound {STEP_GRAD_RTOL:g}); update "
+              f"rel L2 {u_rel:.3e} over {float(steady.float().mean()) * 100:.2f} % of "
+              f"elements ({rel(du, ref_u):.3e} over all); gradient signs differ at "
               f"{int(flips.sum())} of {flips.numel()}, {flip_share:.3e} of the gradient "
-              f"norm; max|diff| {u_max / lr:.3f} lr (bounds {STEP_UPDATE_RTOL:g}, "
-              f"{STEP_UPDATE_RTOL:g}, 2 lr)", flush=True)
-        if not (g_rel <= STEP_UPDATE_RTOL and u_rel <= STEP_UPDATE_RTOL and u_max <= 2 * lr
-                and flip_share <= STEP_UPDATE_RTOL):
-            fail(f"{label}: {n} updates disagree")
+              f"norm; max|diff| {u_max / lr:.3f} lr" + (
+                  f" (bounds {STEP_UPDATE_RTOL:g}, {STEP_UPDATE_RTOL:g}, 2 lr)" if updates
+                  else " (not bounded)"), flush=True)
+        if not g_rel <= STEP_GRAD_RTOL:
+            misses.append(f"{n} gradients")
+        if updates and not (u_rel <= STEP_UPDATE_RTOL and u_max <= 2 * lr
+                            and flip_share <= STEP_UPDATE_RTOL):
+            misses.append(f"{n} updates")
+    return misses
 
 
 def step_through_k1_and_plain(tr, batch) -> None:
     """From one state, one train step through K1 and the same step through
-    the plain STFT (the same q-sample draws: the generator is restored)."""
+    the plain STFT (the same q-sample draws: the generator is restored);
+    then the step through K1 with a wrong window, which must fail."""
+    import torch
+
+    from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
+
     snap = copy.deepcopy(tr.ckpt_payload())
     reset_counts()
     got = one_step(tr, batch)
@@ -486,7 +668,24 @@ def step_through_k1_and_plain(tr, batch) -> None:
     tr.restore_payload(copy.deepcopy(snap))
     ref = one_step(tr, batch, plain=True)
     expect_counts("the plain-STFT step", {"stft": 2, "istft": 0, "enc_stage": 0})
-    compare_steps("train step K1 vs plain STFT", tr, got, ref)
+    misses = compare_steps("train step K1 vs plain STFT", tr, got, ref, updates=False)
+    if misses:
+        fail(f"train step K1 vs plain STFT: {', '.join(misses)} disagree")
+
+    # K1 itself, launched on its table with the symmetric Hann window
+    tab, inv, env = kstft._device_operands(batch[0].device)
+    wrong = tab.clone()
+    wrong[:320] = torch.hann_window(320, periodic=False, device=tab.device)
+    tr.restore_payload(copy.deepcopy(snap))
+    with mock.patch.object(kstft, "_device_operands", lambda device: (wrong, inv, env)):
+        bad = one_step(tr, batch)
+    tr.restore_payload(copy.deepcopy(snap))
+    misses = compare_steps("train step K1 (symmetric window) vs plain STFT", tr, bad, ref,
+                           updates=False)
+    if not misses:
+        fail("the train-step check passed a K1 with the wrong window")
+    print(f"the train-step check rejects K1 with the wrong window: {', '.join(misses)}",
+          flush=True)
 
 
 def timed_steps(tr, batches, card) -> dict:
@@ -575,12 +774,11 @@ def eval_and_kernels(tr, card) -> tuple:
     x_t = torch.randn(x_init.shape, generator=g, device=feat.device)
     t = torch.full((feat.shape[0],), float(tr.enhancer.sched.T[0]), device=feat.device)
     x_ddpm = tr.ddpm.preprocess(torch.cat([x_t, x_init], dim=-1).permute(0, 3, 1, 2))
-    e_dis, _, _ = check_encoder("DiffUNet (trained)", pack_dis, feat, None)
-    e_ddpm, k3_ms, k3_plain_ms = check_encoder(
+    e_dis, _ = check_encoder("DiffUNet (trained)", pack_dis, feat, None)
+    e_ddpm, k3 = check_encoder(
         "DiffUNet1 (trained)", pack_ddpm, x_ddpm.permute(0, 2, 3, 1).contiguous(),
         tr.ddpm.time_embedding(t))
-    rows["enc_stage"] = {"shape": list(feat.shape), "max_abs_err": max(e_dis, e_ddpm),
-                         "ms": k3_ms, "plain_ms": k3_plain_ms}
+    rows["enc_stage"] = {"shape": list(feat.shape), "max_abs_err": max(e_dis, e_ddpm), **k3}
     return {"stft": 2, "istft": 2, "enc_stage": 35}, rows
 
 
@@ -604,7 +802,9 @@ def resume_check(tr, run, exp, batch) -> None:
     exact = got["loss"] == ref["loss"] and all(
         torch.equal(got[k][n], ref[k][n]) for k in ("grad", "update") for n in tr.nets)
     print(f"checkpoint restored into a fresh trainer: next step bit-exact: {exact}", flush=True)
-    compare_steps("next step after restore", tr, got, ref)
+    misses = compare_steps("next step after restore", tr, got, ref, updates=True)
+    if misses:
+        fail(f"next step after restore: {', '.join(misses)} disagree")
 
 
 def train_phase(device, card, root: str, corpus: str):
@@ -763,6 +963,7 @@ def main() -> None:
     # rows: the serving shapes (batch 8 x 3 s), then the training slice's
     kernels = [{"name": name, "route": route, "source": src, "replaces": rep,
                 "launches": paths["cli_train"][name] + paths["cli_generate"][name],
+                "launches_per_batch": paths["serve_batch"][name],
                 "launches_by_path": {p: c[name] for p, c in paths.items()},
                 **rows[name], "train_slice": train_rows[name]}
                for name, (route, src, rep) in meta.items()]

@@ -6,19 +6,29 @@
 //                       epilogue that follows it there (overlap-add,
 //                       envelope divide, centre-pad removal, trim/pad).
 //
-// What bounds them on the card: both are small GEMMs (batch 8 x 3 s:
-// M = 2408 frames, N = 322, K = 320 for K1; M = 2400 rows, N = 160,
-// K = 644 for K2; about 0.5 GFLOP each) over about 1.5 MB of signal and
-// 3 MB of spectrum.  They are latency and launch bound, not bandwidth or
-// FLOP bound.  The design therefore removes every pass over device memory
-// that the TPU path makes around its kernel: K1 reads the unpadded wav and
-// mirrors indices at both ends for the reflect pad (no padded copy, no
-// framed copy), and writes [B, T, 161, 2] interleaved (no split/stack);
-// K2 reads the interleaved spectrum, does the overlap-add inside the
-// product (row r of the output is [spec_r | spec_{r-1}] times the stacked
-// first/second halves of the inverse matrix) and divides by the envelope
-// in the epilogue, writing [B, length] once.  A plain 64x64-tile SIMT f32
-// GEMM with f32 accumulation; wgmma/TMA tiling is later work.
+// K1: what bounds it on the card is memory: batch 8 x 3 s reads 1.5 MB of
+// wav and writes 3.1 MB of spectrum (1.4 us at 3.35 TB/s), while a radix
+// FFT needs ~17 MFLOP (0.25 us); the plain version's DFT-as-GEMM does 0.5
+// GFLOP (7.4 us at the 67 TFLOP/s f32 rate).  The design is one fused pass
+// with an FFT: a block takes 8 frames of one utterance, reads the 9 hop
+// rows they span once (coalesced; the reflect pad is an index map on the
+// first and last rows), and one warp per frame computes the 320-point real
+// FFT as a 160-point complex FFT of z[n] = xw[2n] + i xw[2n+1] (160 = 5 x
+// 32: a radix-5 DFT in each lane, the 32-point rest as radix-2 butterflies
+// across the lanes with warp shuffles), then splits Z into the 161 bins of
+// the real spectrum and writes [T, 161, 2] interleaved.  The Hann window
+// and the twiddles come from a table built on the host in float64 and cast
+// to float32.  No DFT matrix, no framed copy.  The FFT rounds differently
+// from the plain GEMM (both are within ~1e-5 of max|X|).
+//
+// K2: a GEMM (M = 2400 rows, N = 160, K = 644 at batch 8 x 3 s, ~0.5 GFLOP)
+// over about 3 MB of spectrum and 1.5 MB of signal.  It removes every pass
+// over device memory that the TPU path makes around its kernel: it reads
+// the interleaved spectrum, does the overlap-add inside the product (row r
+// of the output is [spec_r | spec_{r-1}] times the stacked first/second
+// halves of the inverse matrix) and divides by the envelope in the
+// epilogue, writing [B, length] once.  A plain 64x64-tile SIMT f32 GEMM
+// with f32 accumulation.
 #include <cuda_runtime.h>
 
 namespace {
@@ -73,18 +83,6 @@ __device__ __forceinline__ void gemm_tile(const ALoad& a_at,
   }
 }
 
-// Frame t, sample n of the reflect-padded signal of one utterance.
-struct FrameAt {
-  const float* x;
-  int L;
-  __device__ float operator()(int t, int n) const {
-    int i = t * kHop + n - kHop;      // index into the unpadded signal
-    i = i < 0 ? -i : i;               // reflect at the start
-    i = i >= L ? 2 * (L - 1) - i : i; // reflect at the end
-    return __ldg(x + i);
-  }
-};
-
 // Output row q (samples q*160 .. q*160+159 after the centre pad is
 // dropped) is padded row r = q + 1, the sum of the first half of frame r
 // and the second half of frame r - 1: A[q] = [spec_r | spec_{r-1}].
@@ -98,21 +96,89 @@ struct OlaRowAt {
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-stft_kernel(const float* __restrict__ x, const float* __restrict__ dft,
+// K1's table, floats: the Hann window [320], then e^{-2 pi i m / 160} for
+// m < 160 and e^{-2 pi i k / 320} for k <= 160, (re, im) interleaved.
+constexpr int kTw160 = kWin, kTw320 = kWin + 2 * kHop;
+constexpr int kFrames = 8;  // frames per block, one warp each
+constexpr int kFftThreads = 32 * kFrames;
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+__global__ void __launch_bounds__(kFftThreads)
+stft_kernel(const float* __restrict__ x, const float* __restrict__ tab,
             float* __restrict__ out, int L, int T) {
-  const int b = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[4][4];
-  gemm_tile(FrameAt{x + (size_t)b * L, L}, dft, T, kPacked, kWin, m0, n0, acc);
-  float* ob = out + (size_t)b * T * kPacked;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  __shared__ __align__(16) float rows[(kFrames + 1) * kHop];
+  __shared__ float2 z[kFrames][kHop];
+  const int b = blockIdx.y, t0 = blockIdx.x * kFrames;
+  const float* xb = x + static_cast<size_t>(b) * L;
+  // hop rows t0 .. t0 + 8 of the reflect-padded signal: padded sample
+  // t0 * 160 + e is sample (t0 - 1) * 160 + e of the wav, mirrored at the ends
+  const int base = (t0 - 1) * kHop, n_rows = min(kFrames + 1, T + 1 - t0);
+  for (int e = threadIdx.x; e < n_rows * kHop; e += kFftThreads) {
+    int i = base + e;
+    i = i < 0 ? -i : i;
+    i = i >= L ? 2 * (L - 1) - i : i;
+    rows[e] = __ldg(xb + i);
+  }
+  __syncthreads();
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, t = t0 + w;
+  if (t >= T) return;
+  const float* frame = rows + w * kHop;  // rows w and w + 1: 320 samples
+  const float2* tw = reinterpret_cast<const float2*>(tab + kTw160);
+
+  // z[32 n1 + lane] for n1 < 5, windowed; then the 5-point DFT over n1 and
+  // the twiddle W160^(lane k1)
+  float2 u[5], v[5];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n1 = 0; n1 < 5; ++n1) {
+    const int s = 64 * n1 + 2 * lane;
+    const float2 a = *reinterpret_cast<const float2*>(frame + s);
+    const float2 wv = __ldg(reinterpret_cast<const float2*>(tab + s));
+    u[n1] = make_float2(a.x * wv.x, a.y * wv.y);
+  }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (t < T && n < kPacked) ob[(size_t)t * kPacked + n] = acc[i][j];
+  for (int k1 = 0; k1 < 5; ++k1) {
+    float2 acc = u[0];
+#pragma unroll
+    for (int n1 = 1; n1 < 5; ++n1) {
+      const float2 p = cmul(u[n1], __ldg(tw + 32 * ((n1 * k1) % 5)));  // W5^(n1 k1)
+      acc.x += p.x;
+      acc.y += p.y;
     }
+    v[k1] = k1 ? cmul(acc, __ldg(tw + lane * k1)) : acc;
+  }
+  // 32-point DFTs across the lanes (decimation in frequency): lane l ends
+  // with Z[k1 + 5 * bitrev5(l)]
+#pragma unroll
+  for (int h = 16; h >= 1; h >>= 1) {
+    const bool upper = lane & h;
+    const float2 wt = __ldg(tw + 5 * (lane & (h - 1)) * (16 / h));  // W_{2h}^j
+#pragma unroll
+    for (int k1 = 0; k1 < 5; ++k1) {
+      const float2 o = make_float2(__shfl_xor_sync(0xffffffffu, v[k1].x, h),
+                                   __shfl_xor_sync(0xffffffffu, v[k1].y, h));
+      v[k1] = upper ? cmul(make_float2(o.x - v[k1].x, o.y - v[k1].y), wt)
+                    : make_float2(v[k1].x + o.x, v[k1].y + o.y);
+    }
+  }
+  const int k2 = __brev(lane) >> 27;
+#pragma unroll
+  for (int k1 = 0; k1 < 5; ++k1) z[w][k1 + 5 * k2] = v[k1];
+  __syncwarp();
+
+  // real split: X[k] = E[k] + W320^k O[k], E = (Z[k] + conj Z[160-k]) / 2,
+  // O = (Z[k] - conj Z[160-k]) / 2i
+  const float2* w320 = reinterpret_cast<const float2*>(tab + kTw320);
+  float2* ob = reinterpret_cast<float2*>(out + (static_cast<size_t>(b) * T + t) * kPacked);
+  for (int k = lane; k <= kHop; k += 32) {
+    const float2 zk = z[w][k == kHop ? 0 : k], zm = z[w][k == 0 ? 0 : kHop - k];
+    const float er = 0.5f * (zk.x + zm.x), ei = 0.5f * (zk.y - zm.y);
+    const float2 o = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
+    const float2 wo = cmul(__ldg(w320 + k), o);
+    ob[k] = make_float2(er + wo.x, ei + wo.y);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -147,13 +213,13 @@ const char* pdt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x [B, L] -> out [B, T, 161, 2]; dft [320, 322] has the Hann window folded
-// in and its columns interleaved (re_f at 2f, im_f at 2f+1).  L > 160.
-int pdt_stft_f32(const float* x, const float* dft, float* out, int B, int L,
+// x [B, L] -> out [B, T, 161, 2], T = L / 160 + 1; tab: the 962-float
+// window and twiddle table (ops/cuda/stft.py::fft_table_np).  L > 160.
+int pdt_stft_f32(const float* x, const float* tab, float* out, int B, int L,
                  int T, void* stream) {
-  dim3 grid((kPacked + BN - 1) / BN, (T + BM - 1) / BM, B);
-  stft_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, dft, out, L, T);
+  dim3 grid((T + kFrames - 1) / kFrames, B);
+  stft_kernel<<<grid, kFftThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, tab, out, L, T);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,6 +21,8 @@ operands of the matmul-chain formulation of
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import torch
@@ -28,7 +30,7 @@ import torch.nn.functional as F
 
 from prior_diffuse_tpu_torch.ops import build
 from prior_diffuse_tpu_torch.ops.cuda._launch import (check_operand, on_cuda,
-                                                      ptr, stream)
+                                                      on_device, stream)
 
 G = 32      # BiConvGLU gate width
 COUT = 64   # encoder stage output channels
@@ -70,7 +72,23 @@ def pack_stage(glu, bn, prelu, kernel_f: int) -> dict:
     ops["w2"] = (_w2d(glu.conv2) * scale[None, :]).contiguous()
     ops["b2"] = glu.conv2.bias * scale + bn.bias - bn.running_mean * scale
     ops["alpha"] = prelu.weight.reshape(1).clone()
+    _check_weights(ops, min(cin, G))
     return ops
+
+
+_WEIGHTS = ("wmain", "wg", "bg", "w2", "b2", "alpha")
+
+
+def _check_weights(ops: dict, c: int) -> None:
+    """K3 takes the weight operands float32, contiguous, of their shapes, on
+    one device, and wmain, wg and w2 16-byte aligned; checked where they
+    are packed, so a launch only checks their device."""
+    shapes = ((2 * ops["kernel_f"] * c, COUT), (COUT, COUT), (COUT,), (G, COUT),
+              (COUT,), (1,))
+    for name, shape in zip(_WEIGHTS, shapes):
+        check_operand(name, ops[name], ops["wmain"].device, shape)
+    if any(ops[n].data_ptr() % 16 for n in ("wmain", "wg", "w2")):
+        raise ValueError("enc_stage kernel takes wmain, wg and w2 16-byte aligned")
 
 
 def pack_encoder(encoder) -> List[Tuple[dict, Optional[torch.nn.Linear]]]:
@@ -108,6 +126,66 @@ def enc_stage_plain(x: torch.Tensor, ops: dict, bias_b: torch.Tensor,
     return torch.where(y2 >= 0, y2, ops["alpha"] * y2)
 
 
+WARPS = 16           # K3's warps per block
+TILE_ROWS = 16 * WARPS  # rows of a tile at most: one 16-row m-tile a warp
+SMEM_MAX = 232_448   # dynamic shared memory a block may use (227 KB)
+GEOMETRIES = ((2, 5), (32, 3))  # (input channels, frequency taps) K3 takes
+
+
+def smem_bytes(c: int, kf: int, f: int, tt: int) -> int:
+    """K3's dynamic shared memory for a tile of ``tt`` output frames: the
+    weights split into hi and lo in fragment order (window, two gate blocks,
+    W2; 16 bytes a lane's fragment), the k-offset table, and the ``tt + 1``
+    input frames ``[F, CS]`` (channel stride ``CS`` = 4 for C = 2, C + 4
+    else)."""
+    k8 = _ceil(2 * kf * c, 8)
+    cs = 4 if c == 2 else c + 4
+    return 16 * 32 * (8 * k8 + 2 * 4 * 4 + 4 * 8) + 4 * 4 * k8 + 4 * (tt + 1) * f * cs
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """How K3 cuts a stage: ``tt`` output frames per tile, ``tiles`` tiles
+    (``tiles // b`` per utterance, the last one partial when ``tt`` does not
+    divide T), ``grid`` persistent blocks walking them, ``smem`` bytes each."""
+    tt: int
+    tiles: int
+    grid: int
+    smem: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(b: int, t: int, f: int, c: int, kf: int, n_sm: int) -> TilePlan:
+    """The tile for ``b`` utterances of ``t`` output frames: a tile of at
+    most ``TILE_ROWS`` rows costs every warp at most one m-tile,
+    so the makespan is the ``ceil(tiles / blocks)`` tiles each of the
+    ``min(tiles, n_sm)`` blocks walks; the smallest tile of least makespan
+    is taken (less to copy in a tile, more blocks at work)."""
+    fo = (f - kf) // 2 + 1
+    best = None
+    for tt in range(1, min(t, TILE_ROWS // fo) + 1):
+        smem = smem_bytes(c, kf, f, tt)
+        if smem > SMEM_MAX:
+            break
+        tiles = b * _ceil(t, tt)
+        grid = min(tiles, n_sm)
+        span = _ceil(tiles, grid)
+        if best is None or span < best[0]:
+            best = (span, TilePlan(tt, tiles, grid, smem))
+    if best is None:
+        raise ValueError(f"no K3 tile fits at F = {f}, C = {c}, kernel_f = {kf}")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def enc_stage(x: torch.Tensor, ops: dict, bias_b: torch.Tensor,
               pad: int) -> torch.Tensor:
     """One fused encoder stage (K3 on CUDA); contract of :func:`enc_stage_plain`."""
@@ -119,25 +197,28 @@ def enc_stage(x: torch.Tensor, ops: dict, bias_b: torch.Tensor,
     k = ops["kernel_f"]
     b, t, fo = _out_shape(x, k, pad)
     cin = x.shape[-1]
+    if (cin, k) not in GEOMETRIES:
+        raise ValueError(f"enc_stage kernel takes (C, kernel_f) in {GEOMETRIES}, "
+                         f"got {(cin, k)}")
     dev = x.device
     check_operand("x", x, dev)
     check_operand("bias_b", bias_b, dev, (b, COUT))
-    check_operand("wmain", ops["wmain"], dev, (2 * k * cin, COUT))
-    check_operand("wg", ops["wg"], dev, (COUT, COUT))
-    check_operand("bg", ops["bg"], dev, (COUT,))
-    check_operand("w2", ops["w2"], dev, (G, COUT))
-    check_operand("b2", ops["b2"], dev, (COUT,))
-    check_operand("alpha", ops["alpha"], dev, (1,))
     if t < 1 or fo < 1:
         raise ValueError(f"stage input {tuple(x.shape)} gives no output rows")
+    if x.data_ptr() % 16:
+        raise ValueError("enc_stage kernel takes x 16-byte aligned")
+    if ops["wmain"].device != dev or ops["wmain"].shape[0] != 2 * k * cin:
+        raise ValueError(f"stage operands on {ops['wmain'].device} with K = "
+                         f"{ops['wmain'].shape[0]} for an input on {dev} with C = {cin}")
     out = torch.empty((b, t, fo, COUT), dtype=torch.float32, device=dev)
     if b:
-        with torch.cuda.device(dev):
+        plan = tile_plan(b, t, x.shape[2], cin, k, _sm_count(dev.index))
+        with on_device(dev):
             err = build.library().pdt_enc_stage_f32(
-                ptr(x), ptr(ops["wmain"]), ptr(bias_b), ptr(ops["wg"]),
-                ptr(ops["bg"]), ptr(ops["w2"]), ptr(ops["b2"]),
-                ptr(ops["alpha"]), ptr(out), b, x.shape[1], x.shape[2], cin,
-                k, pad, stream(dev))
+                x.data_ptr(), bias_b.data_ptr(), *(ops[n].data_ptr() for n in _WEIGHTS),
+                out.data_ptr(), b,
+                x.shape[1], x.shape[2], cin, k, pad, plan.tt, plan.grid, plan.smem,
+                stream(dev))
         build.check(err, "encoder stage kernel")
         enc_stage.launches += 1
     return out

@@ -14,7 +14,7 @@ import torch
 
 from prior_diffuse_tpu_torch.ops import build
 from prior_diffuse_tpu_torch.ops.cuda._launch import (check_operand, on_cuda,
-                                                      ptr, stream)
+                                                      on_device, stream)
 from prior_diffuse_tpu_torch.signal.stft import (_envelope_np, dft_matrices_np,
                                                  frame_count, hann_window,
                                                  istft_plain, stft_plain)
@@ -30,14 +30,17 @@ def _interleave_cols(m: np.ndarray) -> np.ndarray:
     return np.stack([m[..., :FREQ], m[..., FREQ:]], axis=-1).reshape(*m.shape[:-1], -1)
 
 
-def stft_matrix_np() -> np.ndarray:
-    """K1's ``[320, 322]`` operand: the forward DFT with the Hann window
-    folded in, built in float64 as the TPU kernel builds it
-    (``stft_kernel.py::_windowed_dft_np``), cast to float32, columns
-    interleaved to the ``[.., F, 2]`` output layout."""
-    fwd, _ = dft_matrices_np(WIN)
-    w = hann_window(WIN).astype(np.float64)
-    return _interleave_cols((w[:, None] * fwd).astype(np.float32))
+def fft_table_np() -> np.ndarray:
+    """K1's ``[962]`` float32 table: the Hann window (as the plain version
+    applies it), then ``e^{-2 pi i m / 160}`` for ``m < 160`` and
+    ``e^{-2 pi i k / 320}`` for ``k <= 160``, (re, im) interleaved, built in
+    float64 and cast to float32."""
+    def unit(n, count):
+        ang = -2.0 * np.pi * np.arange(count) / n
+        return np.stack([np.cos(ang), np.sin(ang)], axis=-1).reshape(-1)
+
+    return np.concatenate([hann_window(WIN).astype(np.float64), unit(HOP, HOP),
+                           unit(WIN, FREQ)]).astype(np.float32)
 
 
 def istft_operands_np():
@@ -58,7 +61,7 @@ def istft_operands_np():
 def _device_operands(device: torch.device):
     inv, env = istft_operands_np()
     put = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-    return put(stft_matrix_np()), put(inv), put(env)
+    return put(fft_table_np()), put(inv), put(env)
 
 
 def check_no_grad(x: torch.Tensor) -> None:
@@ -84,11 +87,12 @@ def stft(x: torch.Tensor) -> torch.Tensor:
                          "for a centred (reflect-padded) STFT")
     t = frame_count(length)
     out = torch.empty((b, t, FREQ, 2), dtype=torch.float32, device=x.device)
-    dft, _, _ = _device_operands(x.device)
+    tab, _, _ = _device_operands(x.device)
     if b:
-        with torch.cuda.device(x.device):
+        with on_device(x.device):
             err = build.library().pdt_stft_f32(
-                ptr(x), ptr(dft), ptr(out), b, length, t, stream(x.device))
+                x.data_ptr(), tab.data_ptr(), out.data_ptr(), b, length, t,
+                stream(x.device))
         build.check(err, "stft kernel")
         stft.launches += 1
     return out
@@ -107,10 +111,10 @@ def istft(spec: torch.Tensor, length: int) -> torch.Tensor:
     out = torch.empty((b, length), dtype=torch.float32, device=spec.device)
     _, inv, env = _device_operands(spec.device)
     if b and length:
-        with torch.cuda.device(spec.device):
+        with on_device(spec.device):
             err = build.library().pdt_istft_f32(
-                ptr(spec), ptr(inv), ptr(env), ptr(out), b, t, length,
-                stream(spec.device))
+                spec.data_ptr(), inv.data_ptr(), env.data_ptr(), out.data_ptr(), b, t,
+                length, stream(spec.device))
         build.check(err, "istft kernel")
         istft.launches += 1
     return out

@@ -1,4 +1,5 @@
-"""Port K3 packing and plain stage math against the JAX fused encoder (CPU).
+"""Port K3 packing and plain stage math against the JAX fused encoder (CPU),
+and K3's tile plan, index arithmetic and 3xTF32 products emulated in torch.
 
 The port packs each encoder stage from its own converted modules
 (``ops/cuda/convblock.py``) and runs the plain version of K3
@@ -117,42 +118,154 @@ def test_stage_matches_pallas_interpret():
     _close_rel(got.numpy(), want)
 
 
-@pytest.mark.parametrize("pad", [0, 1])
-def test_kernel_index_math_matches_plain(pad):
-    """K3's gather, emulated row by row with the kernel's index arithmetic
-    (k -> (kt, kf, c); input frame t + kt - pad, frames before 0 read as
-    zeros) and its two diagonal gate blocks, equals ``enc_stage_plain``."""
-    g = torch.Generator().manual_seed(pad)
-    b, tin, f, c, kf = 2, 3, 9, 4, 3
-    x = torch.randn(b, tin, f, c, generator=g)
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, on the bits, as ``cvt.rna.tf32.f32`` does for finite values."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as K3's 3xTF32 products: a_lo b_hi + a_hi b_lo + a_hi b_hi."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _k3_emulate(x, ops, bias_b, pad, n_sm=132):
+    """K3 (``csrc/enc_chain.cu``) emulated tile by tile from its plan: each
+    tile's tt + 1 input frames staged as ``[tt + 1, F, CS]`` (zeros outside
+    the input), the A operand read at row offset + k offset, the window,
+    gate and W2 products in 3xTF32.  Returns the output and how many times
+    each output row was written."""
+    b, tin, f, c = x.shape
+    kf = ops["kernel_f"]
+    t, fo = tin - 1 + pad, (f - kf) // 2 + 1
+    plan = cb.tile_plan(b, t, f, c, kf, n_sm)
+    assert plan.smem == cb.smem_bytes(c, kf, f, plan.tt) <= cb.SMEM_MAX
+    assert plan.tt * fo <= cb.TILE_ROWS and plan.grid <= n_sm
+    cs = 4 if c == 2 else c + 4
+    k_dim = 2 * kf * c
+    k8 = -(-k_dim // 8) * 8
+    koff = torch.zeros(k8, dtype=torch.long)
+    for k in range(k_dim):
+        kt, r = divmod(k, kf * c)
+        koff[k] = (kt * f + r // c) * cs + r % c
+    w = torch.zeros(k8, 64)
+    w[:k_dim] = ops["wmain"]
+    per_utt = -(-t // plan.tt)
+    assert plan.tiles == b * per_utt
+    out = torch.full((b, t * fo, 64), float("nan"))
+    writes = torch.zeros(b, t * fo, dtype=torch.long)
+    for tile in range(plan.tiles):
+        bi, t0 = tile // per_utt, (tile % per_utt) * plan.tt
+        buf = torch.zeros(plan.tt + 1, f, cs)
+        for j in range(plan.tt + 1):
+            if 0 <= t0 - pad + j < tin:
+                buf[j, :, :c] = x[bi, t0 - pad + j]
+        buf = buf.reshape(-1)
+        rows = min(plan.tt, t - t0) * fo
+        r = torch.arange(-(-rows // 16) * 16)
+        r = torch.where(r < rows, r, 0)  # rows past the tile read row 0
+        off = ((r // fo) * f + 2 * (r % fo)) * cs
+        a = buf[off[:, None] + koff[None, :]]  # padded k: offset 0, zero weights
+        y = _mm3(a, w) + bias_b[bi]
+        m = _mm3(y, ops["wg"]) + ops["bg"]
+        comb = y[:, :32] * torch.sigmoid(m[:, 32:]) + y[:, 32:] * torch.sigmoid(m[:, :32])
+        o = _mm3(comb, ops["w2"]) + ops["b2"]
+        o = torch.where(o >= 0, o, ops["alpha"] * o)
+        out[bi, t0 * fo:t0 * fo + rows] = o[:rows]
+        writes[bi, t0 * fo:t0 * fo + rows] += 1
+    return out.reshape(b, t, fo, 64), writes
+
+
+def _stage_operands(c, kf, seed):
+    g = torch.Generator().manual_seed(seed)
     ops = {"kernel_f": kf, "wmain": torch.randn(2 * kf * c, 64, generator=g) * 0.2,
            "wg": torch.zeros(64, 64), "bg": torch.randn(64, generator=g),
            "w2": torch.randn(32, 64, generator=g) * 0.2,
            "b2": torch.randn(64, generator=g), "alpha": torch.tensor([0.2])}
     ops["wg"][:32, :32] = torch.randn(32, 32, generator=g) * 0.2
     ops["wg"][32:, 32:] = torch.randn(32, 32, generator=g) * 0.2
+    return ops, g
+
+
+# (input frequencies, channels, kernel_f, pad) of the five encoder stages
+STAGES = [(161, 2, 5, 1), (79, 32, 3, 0), (39, 32, 3, 0), (19, 32, 3, 0), (9, 32, 3, 0)]
+
+
+@pytest.mark.parametrize("pad", [0, 1])
+def test_kernel_index_math_matches_plain(pad):
+    """K3's staging and index arithmetic, emulated tile by tile (input
+    frames t0 - pad + j into a ``[tt + 1, F, CS]`` buffer, frames outside
+    the input zero; A = buffer[row offset + k offset]), with its two
+    diagonal gate blocks and 3xTF32 products, equals ``enc_stage_plain``."""
+    f, c, kf = (161, 2, 5) if pad else (19, 32, 3)
+    ops, g = _stage_operands(c, kf, pad)
+    b, tin = 2, 3
+    x = torch.randn(b, tin, f, c, generator=g)
     bias_b = torch.randn(b, 64, generator=g)
     want = cb.enc_stage_plain(x, ops, bias_b, pad)
-    t_out, fo = tin - 1 + pad, (f - kf) // 2 + 1
-    assert want.shape == (b, t_out, fo, 64)
-    k_dim = 2 * kf * c
-    emu = torch.empty_like(want)
-    for bi in range(b):
-        for row in range(t_out * fo):
-            t, o = divmod(row, fo)
-            col = torch.zeros(k_dim)
-            for k in range(k_dim):
-                kt, kfi, ci = k // (kf * c), (k // c) % kf, k % c
-                tsrc = t + kt - pad
-                if tsrc >= 0:
-                    col[k] = x[bi, tsrc, 2 * o + kfi, ci]
-            y = col @ ops["wmain"] + bias_b[bi]
-            ml = y[:32] @ ops["wg"][:32, :32] + ops["bg"][:32]
-            mr = y[32:] @ ops["wg"][32:, 32:] + ops["bg"][32:]
-            comb = y[:32] * torch.sigmoid(mr) + y[32:] * torch.sigmoid(ml)
-            out = comb @ ops["w2"] + ops["b2"]
-            emu[bi, t, o] = torch.where(out >= 0, out, 0.2 * out)
-    _close_rel(emu.numpy(), want.numpy())
+    assert want.shape == (b, tin - 1 + pad, (f - kf) // 2 + 1, 64)
+    got, writes = _k3_emulate(x, ops, bias_b, pad)
+    assert bool((writes == 1).all())
+    _close_rel(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("stage", range(5), ids=[f"stage{i + 1}" for i in range(5)])
+@pytest.mark.parametrize("t_frames", [8, 13])
+def test_3xtf32_chain_matches_plain(stage, t_frames):
+    """K3's 3xTF32 products (each operand split into TF32 hi and lo, three
+    products) through the whole chain keep f32-level error: within 1e-5 x
+    max|ref| of ``enc_stage_plain`` at every stage geometry, with a tile
+    plan that leaves a partial last tile (n_sm = 2 forces several tiles)."""
+    f, c, kf, pad = STAGES[stage]
+    ops, g = _stage_operands(c, kf, 10 + stage)
+    b = 2
+    x = torch.randn(b, t_frames + 1 - pad, f, c, generator=g)
+    bias_b = torch.randn(b, 64, generator=g)
+    want = cb.enc_stage_plain(x, ops, bias_b, pad)
+    got, writes = _k3_emulate(x, ops, bias_b, pad, n_sm=2)
+    assert bool((writes == 1).all())
+    _close_rel(got.numpy(), want.numpy())
+
+
+def test_tf32_rounding_is_rna():
+    """The emulation's TF32 rounding: to nearest, ties away from zero, 13
+    low mantissa bits cleared; hi + lo keeps ~22 bits of the value."""
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0])
+    np.testing.assert_array_equal(_tf32(x).numpy(), [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                                                     1.0, 3.0])
+    v = torch.randn(1000, generator=torch.Generator().manual_seed(0))
+    hi = _tf32(v)
+    assert float(((hi + _tf32(v - hi) - v).abs() / v.abs()).max()) < 2.0 ** -21
+
+
+# (batch, output frames) of the serving path, training evaluation and the
+# edge shapes chip_smoke.py checks on the card
+PLAN_SHAPES = [(8, 301), (6, 401), (1, 1), (3, 2), (1, 3), (3, 37), (1, 150)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=[f"{b}x{t}" for b, t in PLAN_SHAPES])
+@pytest.mark.parametrize("stage", range(5), ids=[f"stage{i + 1}" for i in range(5)])
+def test_tile_plan_covers_rows_and_fits(shape, stage):
+    """The tile plan writes every output row of every utterance exactly
+    once, keeps a tile within the block's rows, and fits the 227 KB of
+    shared memory a block may use."""
+    b, t = shape
+    f, c, kf, _ = STAGES[stage]
+    fo = (f - kf) // 2 + 1
+    plan = cb.tile_plan(b, t, f, c, kf, 132)
+    assert plan.smem == cb.smem_bytes(c, kf, f, plan.tt) <= cb.SMEM_MAX == 232_448
+    assert 1 <= plan.tt * fo <= cb.TILE_ROWS
+    per_utt = -(-t // plan.tt)
+    assert plan.tiles == b * per_utt and plan.grid == min(plan.tiles, 132)
+    writes = np.zeros((b, t * fo), np.int64)
+    for tile in range(plan.tiles):
+        bi, t0 = divmod(tile, per_utt)
+        t0 *= plan.tt
+        rows = min(plan.tt, t - t0) * fo
+        writes[bi, t0 * fo:t0 * fo + rows] += 1
+    assert (writes == 1).all()
 
 
 def test_wrapper_takes_plain_path_on_cpu(encoders):

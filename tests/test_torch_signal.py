@@ -96,20 +96,12 @@ def test_wrappers_take_plain_path_on_cpu(rng):
 
 @pytest.mark.parametrize("length", [161, 2017])
 def test_kernel_operands_reproduce_plain(rng, length):
-    """K1/K2 formulations, emulated in numpy with the kernels' own operands
-    and index arithmetic (reflect-mirrored frame reads; output row q =
-    [spec_{q+1} | spec_q] @ stacked inverse / envelope), equal the plain
-    versions."""
+    """K2's formulation, emulated in numpy with the kernel's own operands
+    and index arithmetic (output row q = [spec_{q+1} | spec_q] @ stacked
+    inverse / envelope), equals the plain version."""
     x = rng.standard_normal((1, length)).astype(np.float32)
     t_frames = length // 160 + 1
-    idx = np.arange(t_frames)[:, None] * 160 + np.arange(320)[None, :] - 160
-    idx = np.abs(idx)
-    idx = np.where(idx >= length, 2 * (length - 1) - idx, idx)
-    spec_k1 = (x[0][idx].astype(np.float64) @ kstft.stft_matrix_np()).reshape(
-        1, t_frames, 161, 2)
     want = pstft.stft_plain(torch.from_numpy(x)).numpy()
-    _close_rel(spec_k1, want, 1e-5)
-
     inv, env = kstft.istft_operands_np()
     packed = want[0].reshape(t_frames, 322).astype(np.float64)
     out_len = length + 250
@@ -129,6 +121,84 @@ def test_kernel_operands_reproduce_plain(rng, length):
     # scales float32 rounding by 1/env: compare numerators
     np.testing.assert_allclose(out[:out_len] * env_s[:out_len],
                                got * env_s[:out_len], rtol=0, atol=1e-5)
+
+
+def _k1_emulate(x: np.ndarray, tab=None) -> np.ndarray:
+    """K1 (``csrc/stft.cu::stft_kernel``) in numpy, in complex64, step by
+    step as one warp computes a frame: the reflect-mirrored hop rows, the
+    window, z[n] = xw[2n] + i xw[2n+1], a 5-point DFT in each lane n2 over
+    z[32 n1 + n2] and the twiddle W160^(n2 k1), radix-2 butterflies across
+    the 32 lanes (decimation in frequency, lane l ends with k2 =
+    bitrev5(l)), then the real split of Z into 161 bins; all constants
+    from ``tab`` (default ``fft_table_np``)."""
+    tab = kstft.fft_table_np() if tab is None else tab
+    win = tab[:320]
+    tw = (tab[320:640:2] + 1j * tab[321:640:2]).astype(np.complex64)
+    w320 = (tab[640::2] + 1j * tab[641::2]).astype(np.complex64)
+    length = x.shape[-1]
+    t_frames = length // 160 + 1
+    idx = np.abs(np.arange((t_frames + 1) * 160) - 160)
+    idx = np.where(idx >= length, 2 * (length - 1) - idx, idx)
+    rows = x[..., idx].reshape(*x.shape[:-1], t_frames + 1, 160)
+    frames = np.concatenate([rows[..., :-1, :], rows[..., 1:, :]], axis=-1) * win
+    z = (frames[..., 0::2] + 1j * frames[..., 1::2]).astype(np.complex64)
+    u = z.reshape(*z.shape[:-1], 5, 32)  # [.., n1, lane]
+    lane = np.arange(32)
+    v = []
+    for k1 in range(5):
+        acc = u[..., 0, :]
+        for n1 in range(1, 5):
+            acc = acc + u[..., n1, :] * tw[32 * ((n1 * k1) % 5)]
+        v.append(acc * tw[lane * k1] if k1 else acc)
+    v = np.stack(v, axis=-2)  # [.., k1, lane]
+    for h in (16, 8, 4, 2, 1):
+        other = v[..., lane ^ h]
+        wt = tw[5 * (lane & (h - 1)) * (16 // h)]
+        v = np.where((lane & h) != 0, (other - v) * wt, v + other).astype(np.complex64)
+    k2 = np.array([int(f"{i:05b}"[::-1], 2) for i in range(32)])
+    big_z = np.empty(v.shape[:-2] + (160,), np.complex64)
+    for k1 in range(5):
+        big_z[..., k1 + 5 * k2] = v[..., k1, :]
+    k = np.arange(161)
+    zk, zm = big_z[..., k % 160], big_z[..., (160 - k) % 160]
+    even = 0.5 * (zk + np.conj(zm))
+    odd = (zk - np.conj(zm)) / 2j
+    spec = even + w320 * odd
+    return np.stack([spec.real, spec.imag], axis=-1).astype(np.float32)
+
+
+@pytest.mark.parametrize("length", [161, 2017, 48000])
+def test_fft_factorization_reproduces_plain(rng, length):
+    """K1's FFT factorization with its host twiddle table (float64 built,
+    float32 stored) equals the plain framed-matmul STFT."""
+    x = rng.standard_normal((2, length)).astype(np.float32)
+    _close_rel(_k1_emulate(x), pstft.stft_plain(torch.from_numpy(x)).numpy(), 1e-5)
+
+
+def test_fft_emulation_sees_a_wrong_window(rng):
+    """The emulation above can fail: with the symmetric Hann window (the
+    classic off-by-one of ``torch.hann_window(320, periodic=False)``) in
+    K1's table it misses the plain STFT by far more than 1e-5."""
+    x = rng.standard_normal((1, 2017)).astype(np.float32)
+    tab = kstft.fft_table_np()
+    tab[:320] = torch.hann_window(320, periodic=False).numpy()
+    got = _k1_emulate(x, tab)
+    want = pstft.stft_plain(torch.from_numpy(x)).numpy()
+    assert np.abs(got - want).max() > 1e-3 * np.abs(want).max()
+
+
+def test_fft_table_matches_its_definition():
+    """The window is the plain version's float32 Hann window; the twiddles
+    are e^{-2 pi i m / 160} and e^{-2 pi i k / 320} rounded once to float32."""
+    tab = kstft.fft_table_np()
+    assert tab.dtype == np.float32 and tab.shape == (962,)
+    np.testing.assert_array_equal(tab[:320], pstft.hann_window(320))
+    w160 = np.exp(-2j * np.pi * np.arange(160) / 160)
+    w320 = np.exp(-2j * np.pi * np.arange(161) / 320)
+    np.testing.assert_array_equal(tab[320:640:2], w160.real.astype(np.float32))
+    np.testing.assert_array_equal(tab[321:640:2], w160.imag.astype(np.float32))
+    np.testing.assert_array_equal(tab[640::2], w320.real.astype(np.float32))
+    np.testing.assert_array_equal(tab[641::2], w320.imag.astype(np.float32))
 
 
 @pytest.mark.parametrize("feat_type", ["normal", "sqrt", "cubic", "log_1x", "none"])

@@ -1,0 +1,256 @@
+#!/usr/bin/env python3
+"""Two probes of the PyTorch + CUDA port on one GPU (development tools; the
+port and ``chip_smoke.py`` do not use them).
+
+    python3 tools/kernel_probe.py k3 [--json PATH]
+    python3 tools/kernel_probe.py step [--json PATH]
+
+``k3`` attributes K3's device time by rebuilding the kernels from patched
+copies of ``csrc/enc_chain.cu``.  Each variant takes one part of the
+kernel's work away (a patched kernel computes wrong values on purpose;
+only its time is read): two of the three TF32 products of every 3xTF32
+step, the window product, the gate and W2 chain after it, or the output
+stores.  Every variant runs the five encoder stages of one DiffUNet1
+forward at batch 8 x 3 s (weights from a seed), each stage timed by
+CUDA-graph replay, so the host's pace does not enter.  The kernel as
+built is timed first and last; on the first run the card's power draw and
+SM clock are read while the five stages run back to back for 2 s.  A
+patch whose text no longer occurs once in the source stops the probe.
+
+``step`` measures how far one train step of ``conf/diff.yml``
+(``--joint --sigma``, batch 6 x 48000, weights from a seed) moves when its
+STFT changes: the same step is taken from one state with the plain STFT,
+then with each variant (the plain STFT again; K1; ``torch.stft``; the
+plain STFT times ``1 + r N(0, 1)``; K1 with the symmetric Hann window in
+its table; K1 times ``1 + r``), and the losses, each net's gradient and
+Adam update are compared with the first run's as ``chip_smoke.py``
+compares the step through K1 with the plain step.
+
+Both need a CUDA card; ``k3`` also needs ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+from unittest import mock
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+from prior_diffuse_tpu_torch.ops import build  # noqa: E402
+
+# variant -> [(text of csrc/enc_chain.cu, replacement)]
+PATCHES = {
+    "as built": [],
+    "1xTF32 (hi x hi products only)": [
+        ("for (int j = 0; j < N; ++j) mma(d[i][j], a[i].lo, b[j].x, b[j].y);",
+         "for (int j = 0; j < 0; ++j) mma(d[i][j], a[i].lo, b[j].x, b[j].y);"),
+        ("for (int j = 0; j < N; ++j) mma(d[i][j], a[i].hi, b[j].z, b[j].w);",
+         "for (int j = 0; j < 0; ++j) mma(d[i][j], a[i].hi, b[j].z, b[j].w);")],
+    "no window product": [
+        ("for (int s = 0; s < KS; ++s) {", "for (int s = 0; s < 0; ++s) {")],
+    "no gate and W2 chain (y stored)": [
+        ("make_float2(prelu(o[i][j][2 * h]), prelu(o[i][j][2 * h + 1]))",
+         "make_float2(y[i][j][2 * h], y[i][j][2 * h + 1])")],
+    "no output stores": [
+        ("if (r < rows) {", "if (r < rows && o[i][0][2 * h] == 1234.5f) {")],
+}
+
+
+def patched_library(name: str, edits, work: Path) -> ctypes.CDLL:
+    """The kernels of ``csrc/`` built with ``edits`` applied to enc_chain.cu,
+    with the flags and entry points of ``ops/build.py``."""
+    src = work / name.replace(" ", "_").replace("(", "").replace(")", "")
+    shutil.copytree(build.SRC_DIR, src)
+    path = src / "enc_chain.cu"
+    text = path.read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"probe variant {name!r}: {old!r} does not occur once")
+        text = text.replace(old, new)
+    path.write_text(text)
+    lib = src / "libprobe.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(lib),
+                    *map(str, sorted(src.glob("*.cu")))], check=True, capture_output=True)
+    so = ctypes.CDLL(str(lib))
+    for fn_name, argtypes in build._SIGNATURES.items():
+        getattr(so, fn_name).argtypes = argtypes
+        getattr(so, fn_name).restype = ctypes.c_int
+    so.pdt_error_string.argtypes = [ctypes.c_int]
+    so.pdt_error_string.restype = ctypes.c_char_p
+    return so
+
+
+def power_under(fn, seconds: float = 2.0) -> dict:
+    """Median power draw (W) and SM clock (MHz) that ``nvidia-smi`` reads
+    every 200 ms while ``fn`` runs back to back for ``seconds``."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=power.draw,clocks.sm", "--format=csv,noheader,nounits",
+         "-lms", "200"], stdout=subprocess.PIPE, text=True)
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        end.record()
+        torch.cuda.synchronize()
+        while start.elapsed_time(end) < seconds * 1e3:
+            for _ in range(20):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+    rows = [line.split(",") for line in smi.communicate()[0].splitlines() if "," in line]
+    rows = sorted((float(w), float(c)) for w, c in rows)
+    return {"power_w": rows[len(rows) // 2][0], "sm_mhz": rows[len(rows) // 2][1],
+            "samples": len(rows)}
+
+
+def stage_inputs_of_a_forward(seed: int = 0):
+    """The five (xin, ops, bias_b, pad) of one DiffUNet1 forward at batch
+    8 x 3 s (T = 301), from the plain stages, with weights drawn from
+    ``seed``."""
+    from prior_diffuse_tpu_torch.models.diffunet import DiffUNet1
+    from prior_diffuse_tpu_torch.ops.cuda import convblock as cb
+
+    torch.manual_seed(seed)
+    net = DiffUNet1().cuda().eval()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(8, 301, 161, 2, generator=g, device="cuda")
+    temb = net.time_embedding(torch.rand(8, generator=g, device="cuda") * 40.0)
+    stages = []
+    for ops, tp in cb.pack_encoder(net.core.en):
+        xin, bias_b, pad = cb.stage_inputs(x, ops, tp, temb)
+        stages.append((xin, ops, bias_b, pad))
+        x = cb.enc_stage_plain(xin, ops, bias_b, pad)
+    return stages
+
+
+def k3_probe(card: str) -> list:
+    from prior_diffuse_tpu_torch.ops.cuda import convblock as cb
+
+    stages = stage_inputs_of_a_forward()
+    results = []
+    with tempfile.TemporaryDirectory(prefix="k3_probe_") as work:
+        for i, name in enumerate(list(PATCHES) + ["as built"]):
+            lib = patched_library(f"{i} {name}", PATCHES[name], Path(work))
+            with mock.patch.object(build, "library", lambda: lib):
+                ms = [chip_smoke.graph_ms(lambda s=s: cb.enc_stage(*s)) for s in stages]
+                power = power_under(lambda: [cb.enc_stage(*s) for s in stages]) if (
+                    not results) else {}
+            results.append({"variant": name, "stage_ms": ms, "ms": sum(ms), **power})
+            print(f"{name}: {sum(ms):.4f} ms (stages " + ", ".join(f"{v:.4f}" for v in ms)
+                  + f"){'; ' + json.dumps(power) if power else ''}; card {card}", flush=True)
+    return results
+
+
+def step_probe(card: str) -> list:
+    from prior_diffuse_tpu_torch.config import RunConfig, load_experiment
+    from prior_diffuse_tpu_torch.data.synthetic import write_corpus_speechlike
+    from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
+    from prior_diffuse_tpu_torch.training.ddpm_trainer import ComplexDDPMTrainer
+
+    dev = torch.device("cuda:0")
+    window = torch.hann_window(320, device=dev)
+    g = torch.Generator(device=dev).manual_seed(123)
+    tab, inv, env = kstft._device_operands(dev)
+    wrong = tab.clone()
+    wrong[:320] = torch.hann_window(320, periodic=False, device=dev)
+
+    def noisy(r):
+        return lambda x: (s := kstft.stft_plain(x)) * (
+            1 + r * torch.randn(s.shape, generator=g, device=dev))
+
+    k1 = kstft.stft  # the variants run while kstft.stft is patched to them
+
+    def k1_wrong_window(x):
+        with mock.patch.object(kstft, "_device_operands", lambda device: (wrong, inv, env)):
+            return k1(x)
+
+    variants = {
+        "the plain STFT again": kstft.stft_plain,
+        "K1": k1,
+        "torch.stft (cuFFT)": lambda x: torch.view_as_real(torch.stft(
+            x, 320, 160, window=window, center=True, pad_mode="reflect",
+            return_complex=True).transpose(1, 2)),
+        **{f"the plain STFT x (1 + {r:g} N(0, 1))": noisy(r) for r in (1e-8, 1e-6)},
+        "K1 with the symmetric Hann window": k1_wrong_window,
+        **{f"K1 x (1 + {r:g})": (lambda r: lambda x: k1(x) * (1 + r))(r)
+           for r in (1e-4, 1e-3)},
+    }
+    rel = lambda a, b: float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+    results = []
+    with tempfile.TemporaryDirectory(prefix="probe_step_") as root:
+        corpus = write_corpus_speechlike(os.path.join(root, "corpus"), n_train=6, n_test=6,
+                                         min_len=48000, max_len=64000, seed=8)
+        exp = load_experiment(str(ROOT / "conf" / "diff.yml"))
+        run = RunConfig(seed=7, joint=True, sigma=True, data_root=corpus,
+                        assets=os.path.join(root, "assets"))
+        tr = ComplexDDPMTrainer(run, exp, device=dev)
+        b = next(iter(tr.tr_loader))
+        batch = tr.put_batch(b.noisy, b.clean, b.frame_nums)
+        snap = copy.deepcopy(tr.ckpt_payload())
+        spec = kstft.stft_plain(batch[0])
+
+        def step(fn):
+            tr.restore_payload(copy.deepcopy(snap))
+            # K1 counts its launches on the module's ``stft``, here the variant
+            variant = lambda x: fn(x)
+            variant.launches = 0
+            with mock.patch.object(kstft, "stft", variant):
+                return chip_smoke.one_step(tr, batch)
+
+        ref = step(kstft.stft_plain)
+        for name, fn in variants.items():
+            got = step(fn)
+            row = {"variant": name,
+                   "stft_max_abs_diff": float((fn(batch[0]) - spec).abs().max()),
+                   "loss_rel": [abs(a - r) / abs(r) for a, r in zip(got["loss"], ref["loss"])]}
+            for n in tr.nets:
+                g_ref, u_ref = ref["grad"][n], ref["update"][n]
+                flips = torch.sign(got["grad"][n]) != torch.sign(g_ref)
+                steady = ~flips & (g_ref.abs() >= chip_smoke.STEADY_GRAD)
+                row[n] = {"grad_rel_l2": rel(got["grad"][n], g_ref),
+                          "update_rel_l2_steady": rel(got["update"][n][steady], u_ref[steady]),
+                          "sign_flips": int(flips.sum())}
+            results.append(row)
+            print(f"{name}: STFT max|diff| {row['stft_max_abs_diff']:.3e}; losses rel "
+                  + ", ".join(f"{v:.2e}" for v in row["loss_rel"]) + "; " + "; ".join(
+                      f"{n}: grad {row[n]['grad_rel_l2']:.3e}, update "
+                      f"{row[n]['update_rel_l2_steady']:.3e} over the steady elements, "
+                      f"{row[n]['sign_flips']} sign flips" for n in tr.nets)
+                  + f"; card {card}", flush=True)
+    return results
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("probe", choices=("k3", "step"))
+    ap.add_argument("--json", help="also write the results to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("probe: no CUDA card")
+    card = chip_smoke.card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    results = (k3_probe if args.probe == "k3" else step_probe)(card)
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps({"card": card, "results": results}))
+
+
+if __name__ == "__main__":
+    main()
