@@ -9,15 +9,21 @@ Phases (each passes or ends the script with a non-zero exit):
 1. build the kernels of ``prior_diffuse_tpu_torch/csrc`` (nvcc, sm_90a,
    one process per source);
 2. each kernel against its plain PyTorch version on the card, on the same
-   inputs, at the shapes of the serving path (batch 8 x 3 s): K1 STFT and
-   K2 ISTFT on ``[8, 48000]``, K3 at the five encoder stages of both nets
-   at T = 301 with a per-batch bias; times from CUDA events after warm-up,
-   device times from ``torch.profiler`` and from CUDA-graph replays; K1
-   and K2 timed in turns against their library yardsticks (``torch.stft``,
-   ``torch.istft``); each kernel's bound (bytes or f32 operations at the
-   H100's published peaks) from the shapes; then off those shapes: batch
-   1 and 3, odd lengths, every K3 stage at 1-3 frames and at frame counts
-   that no time tile divides;
+   inputs, at the shapes of the serving path (batch 8 x 3 s): K1 STFT on
+   ``[8, 48000]``, K2 ISTFT on its spectrum and on a seeded random
+   spectrum ``[8, 301, 161, 2]`` whose DC and Nyquist bins have imaginary
+   parts (as the DDPM's estimate has), K3 at the five encoder stages of
+   both nets at T = 301 with a per-batch bias; times from CUDA events
+   after warm-up, device times from ``torch.profiler`` and from CUDA-graph
+   replays; K1 and K2 timed in turns against their library yardsticks
+   (``torch.stft``, ``torch.istft``), and marked slower on device where
+   their profiler time exceeds the yardstick's; each kernel's bound (bytes
+   or f32 operations at the H100's published peaks) from the shapes; then
+   off those shapes: batch 1 and 3, odd lengths, K2 on random spectra at
+   the edges of each tile it is built for (R = 4, 8, 16 rows a block; T =
+   1, R, R + 1, 2R + 1; an output shorter than one row, ending in row T,
+   or past it), every K3 stage at 1-3 frames and at frame counts that no
+   time tile divides;
 3. the serving path at full width: ``DiffUNet`` and ``DiffUNet1`` with
    weights drawn from a seeded ``torch.Generator`` (randomised BN
    statistics), ``Enhancer.enhance_batch`` on 8 speech-like 3 s wavs,
@@ -256,6 +262,25 @@ def expect_close(label: str, got, want, rtol: float = KERNEL_RTOL) -> float:
     return err
 
 
+def expect_istft_close(label: str, spec, out_len: int) -> float:
+    """K2 against its plain version at ``out_len``, both times the
+    window-square envelope they divide by: the last frame's tail is divided
+    by an envelope down to ~1e-8 (both versions), which scales float32
+    rounding by 1/env, so the numerators of that division are compared."""
+    import torch
+
+    from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
+    from prior_diffuse_tpu_torch.signal.stft import _envelope_np
+
+    env = np.ones(out_len)
+    tail = _envelope_np(spec.shape[1], 320, 160)[160:160 + out_len]
+    env[:len(tail)] = tail
+    env = torch.tensor(env, dtype=torch.float32, device=spec.device)
+    return expect_close(f"{label} {tuple(spec.shape)} length {out_len} (x envelope)",
+                        kstft.istft(spec, out_len) * env,
+                        kstft.istft_plain(spec, length=out_len) * env)
+
+
 def speechlike(n: int, length: int, seed: int) -> np.ndarray:
     """Voiced-speech-like test signals: harmonics of a gliding f0 under a
     syllable-rate envelope, plus noise; RMS-normalised per row."""
@@ -356,19 +381,34 @@ def check_kernels(device, nets):
         torch.view_as_complex(spec).transpose(1, 2), 320, 160, window=window,
         center=True, length=LENGTH)
     expect_close("torch.istft (yardstick)", lib_istft(), ref)
-    rows["istft"] = {"max_abs_err": err,
+    # a spectrum no STFT made: Im X[0] and Im X[160] nonzero, which K2
+    # (as the plain inverse) must ignore
+    g = torch.Generator(device=device).manual_seed(12)
+    raw = torch.randn(BATCH, T_FRAMES, 161, 2, generator=g, device=device)
+    if not bool((raw[..., [0, 160], 1] != 0).all()):
+        fail("the random spectrum has a zero DC or Nyquist imaginary part")
+    err_raw = expect_close(f"K2 istft {tuple(raw.shape)} random spectrum",
+                           kstft.istft(raw, LENGTH), kstft.istft_plain(raw, length=LENGTH))
+    rows["istft"] = {"max_abs_err": err, "max_abs_err_random_spectrum": err_raw,
                      **in_turns(lambda: kstft.istft(spec, LENGTH), lib_istft),
                      "plain_ms": cuda_ms(lambda: kstft.istft_plain(spec, length=LENGTH)),
                      "device_ms": device_ms(lambda: kstft.istft(spec, LENGTH)),
+                     "graph_ms": graph_ms(lambda: kstft.istft(spec, LENGTH)),
                      "library_device_ms": device_ms(lib_istft),
                      **istft_bound(BATCH, T_FRAMES, LENGTH)}
     for name in ("stft", "istft"):
         r = rows[name]
+        # torch.istft reads back to the host on every call (its envelope
+        # check), which stalls the stream and favours the kernel on events;
+        # the profiler's device times compare the work alone
+        r["slower_on_device"] = (None if None in (r["device_ms"], r["library_device_ms"])
+                                 else r["device_ms"] > r["library_device_ms"])
         print(f"{name}: {r['ms_turns']} ms (device {fmt(r['device_ms'])}, graph "
-              f"{fmt(r.get('graph_ms'))}) vs library "
+              f"{fmt(r['graph_ms'])}) vs library "
               f"{r['library_ms_turns']} ms (device {fmt(r['library_device_ms'])}); bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}); slower than the library: "
-              f"{r['slower_than_library']}", flush=True)
+              f"{r['slower_than_library']} on events, {r['slower_on_device']} on device",
+              flush=True)
 
     g = torch.Generator(device=device).manual_seed(2)
     worst = 0.0
@@ -426,30 +466,33 @@ def check_encoder(name, packed, x, temb):
 def check_edge_shapes(device, nets):
     """Kernels against their plain versions off the main path's shapes:
     batch 1 and 3, the shortest signal (161 samples), lengths that are not
-    multiples of 160, output lengths trimmed and zero-padded, and encoder
-    stages with 1-3 frames (partial tiles on every edge)."""
+    multiples of 160, output lengths trimmed and zero-padded, K2 on random
+    spectra at its tile's edges, and encoder stages with 1-3 frames
+    (partial tiles on every edge)."""
     import torch
 
     from prior_diffuse_tpu_torch.ops.cuda import convblock as cb
     from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
-    from prior_diffuse_tpu_torch.signal.stft import _envelope_np
 
     for b, n in [(1, 161), (3, 16037), (2, 10241), (1, 48000), (3, 2017)]:
         wav = torch.from_numpy(speechlike(b, n, n)).to(device)
         spec = kstft.stft_plain(wav)
         expect_close(f"K1 stft {tuple(wav.shape)}", kstft.stft(wav), spec)
         for out_len in (n, max(n - 100, 1), n + 333):
-            # the last frame's tail is divided by a window-square envelope
-            # down to ~1e-8 (both versions), which scales float32 rounding
-            # by 1/env: compare the numerators of that division
-            env = np.ones(out_len)
-            tail = _envelope_np(spec.shape[1], 320, 160)[160:160 + out_len]
-            env[:len(tail)] = tail
-            env = torch.tensor(env, dtype=torch.float32, device=device)
-            expect_close(f"K2 istft {tuple(spec.shape)} length {out_len} (x envelope)",
-                         kstft.istft(spec, out_len) * env,
-                         kstft.istft_plain(spec, length=out_len) * env)
+            expect_istft_close("K2 istft", spec, out_len)
     g = torch.Generator(device=device).manual_seed(3)
+    # for each tile K2 is built for (the path's and the others): T = 1, one
+    # tile, one tile and one frame, two tiles and one frame; an output
+    # shorter than one row, one that ends inside row T, one that reaches 2
+    # rows past T (zero pad)
+    for rows in kstft.ISTFT_TILES:
+        with mock.patch.object(kstft, "ISTFT_ROWS", rows):
+            for b in (1, 3):
+                for t_frames in (1, rows, rows + 1, 2 * rows + 1):
+                    raw = torch.randn(b, t_frames, 161, 2, generator=g, device=device)
+                    for out_len in (100, t_frames * 160 - 50, (t_frames + 2) * 160 + 37):
+                        expect_istft_close(f"K2 istft ({rows} rows a block) random spectrum",
+                                           raw, out_len)
     packed = cb.pack_encoder(nets[1].core.en)
     # every stage at 1-3 frames, batch 1 and 3, and frame counts that are
     # not a multiple of any stage's time tile
@@ -673,11 +716,11 @@ def step_through_k1_and_plain(tr, batch) -> None:
         fail(f"train step K1 vs plain STFT: {', '.join(misses)} disagree")
 
     # K1 itself, launched on its table with the symmetric Hann window
-    tab, inv, env = kstft._device_operands(batch[0].device)
+    tab, itab = kstft._device_operands(batch[0].device)
     wrong = tab.clone()
     wrong[:320] = torch.hann_window(320, periodic=False, device=tab.device)
     tr.restore_payload(copy.deepcopy(snap))
-    with mock.patch.object(kstft, "_device_operands", lambda device: (wrong, inv, env)):
+    with mock.patch.object(kstft, "_device_operands", lambda device: (wrong, itab)):
         bad = one_step(tr, batch)
     tr.restore_payload(copy.deepcopy(snap))
     misses = compare_steps("train step K1 (symmetric window) vs plain STFT", tr, bad, ref,

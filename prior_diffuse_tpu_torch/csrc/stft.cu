@@ -21,14 +21,31 @@
 // to float32.  No DFT matrix, no framed copy.  The FFT rounds differently
 // from the plain GEMM (both are within ~1e-5 of max|X|).
 //
-// K2: a GEMM (M = 2400 rows, N = 160, K = 644 at batch 8 x 3 s, ~0.5 GFLOP)
-// over about 3 MB of spectrum and 1.5 MB of signal.  It removes every pass
-// over device memory that the TPU path makes around its kernel: it reads
-// the interleaved spectrum, does the overlap-add inside the product (row r
-// of the output is [spec_r | spec_{r-1}] times the stacked first/second
-// halves of the inverse matrix) and divides by the envelope in the
-// epilogue, writing [B, length] once.  A plain 64x64-tile SIMT f32 GEMM
-// with f32 accumulation.
+// K2: K1 run backwards, and like K1 bound by bytes: batch 8 x 3 s reads
+// 3.1 MB of spectrum and writes 1.5 MB of signal (1.4 us at 3.35 TB/s),
+// while the inverse FFTs need ~17 MFLOP.  A block owns R output rows of 160
+// samples of one utterance.  Output row q is padded row q + 1: the first
+// half of frame q + 1 plus the second half of frame q, so the block takes
+// frames q0 .. q0 + R, one warp each; the last is a halo frame that the
+// next block computes too (1/R more FFT work, its spectrum mostly read
+// from L2).  R is a template parameter (4, 8 or 16) that the caller passes
+// at launch (ops/cuda/stft.py::ISTFT_ROWS, chosen there from the serving
+// and eval shapes by tools/kernel_probe.py k2).
+
+// Per frame (one warp): the 161 bins into shared memory (coalesced float2
+// loads) with Im X[0] and Im X[160] taken as 0, as the plain inverse and
+// irfft take them; the Hermitian pre-split into the 160-point complex Z
+// whose inverse DFT is 320 (x[2n] + i x[2n+1]); that inverse as K1's FFT
+// reversed: radix-2 decimation-in-time butterflies across the lanes by
+// warp shuffles, taking Z in K1's bit-reversed lane order, the twiddle
+// W160^-(lane k1), a 5-point inverse DFT in each lane, so that lane l
+// holds z[32 n1 + l]; then the synthesis window times 1/320 in one
+// product, into shared memory.  After one barrier the block overlap-adds
+// its rows, divides by the window-square envelope, drops the centre pad,
+// trims or zero-pads to `length`, and writes its samples once, coalesced.
+// No DFT matrix, no frames in device memory.  Window, twiddles and
+// envelope come from a table built on the host in float64 and cast to
+// float32.
 #include <cuda_runtime.h>
 
 namespace {
@@ -36,65 +53,6 @@ namespace {
 constexpr int kHop = 160;
 constexpr int kWin = 320;
 constexpr int kPacked = 322;  // 161 bins x (re, im), interleaved
-
-constexpr int BM = 64, BN = 64, BK = 16, kThreads = 256;
-
-// acc = A[m0:m0+64, :] @ B[:, n0:n0+64] for A[M, K] given element-wise by
-// a_at(m, k) and B row-major [K, N] in device memory.  Thread (tx, ty) of
-// the 16 x 16 block owns rows m0 + ty + 16 i and columns n0 + tx + 16 j.
-template <typename ALoad>
-__device__ __forceinline__ void gemm_tile(const ALoad& a_at,
-                                          const float* __restrict__ bmat,
-                                          int M, int N, int K, int m0, int n0,
-                                          float (&acc)[4][4]) {
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += kThreads) {
-      const int m = e / BK, k = e % BK;
-      const int gm = m0 + m, gk = k0 + k;
-      As[k][m] = (gm < M && gk < K) ? a_at(gm, gk) : 0.f;
-    }
-    for (int e = tid; e < BK * BN; e += kThreads) {
-      const int k = e / BN, n = e % BN;
-      const int gk = k0 + k, gn = n0 + n;
-      Bs[k][n] = (gk < K && gn < N) ? bmat[(size_t)gk * N + gn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// Output row q (samples q*160 .. q*160+159 after the centre pad is
-// dropped) is padded row r = q + 1, the sum of the first half of frame r
-// and the second half of frame r - 1: A[q] = [spec_r | spec_{r-1}].
-struct OlaRowAt {
-  const float* spec;  // [T, 322] of one utterance
-  int T;
-  __device__ float operator()(int q, int k) const {
-    const int r = q + 1;
-    if (k < kPacked) return r < T ? __ldg(spec + (size_t)r * kPacked + k) : 0.f;
-    return r <= T ? __ldg(spec + (size_t)(r - 1) * kPacked + k - kPacked) : 0.f;
-  }
-};
 
 // K1's table, floats: the Hann window [320], then e^{-2 pi i m / 160} for
 // m < 160 and e^{-2 pi i k / 320} for k <= 160, (re, im) interleaved.
@@ -181,28 +139,103 @@ stft_kernel(const float* __restrict__ x, const float* __restrict__ tab,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-istft_kernel(const float* __restrict__ spec, const float* __restrict__ inv,
-             const float* __restrict__ env, float* __restrict__ out, int T,
-             int length) {
-  const int b = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int Q = (length + kHop - 1) / kHop;
-  float acc[4][4];
-  gemm_tile(OlaRowAt{spec + (size_t)b * T * kPacked, T}, inv, Q, kHop,
-            2 * kPacked, m0, n0, acc);
-  float* ob = out + (size_t)b * length;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int q = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      const int s = q * kHop + n, r = q + 1;
-      if (q < Q && n < kHop && s < length)
-        // rows past the last frame are the zero pad up to `length`;
-        // row T holds only frame T-1's second half (envelope table 1)
-        ob[s] = r <= T ? acc[i][j] / env[(r == T) * kHop + n] : 0.f;
+// K2's table, floats: the Hann window / 320 [320], then e^{+2 pi i m / 160}
+// for m < 160 and e^{+2 pi i k / 320} for k < 160, (re, im) interleaved,
+// then the floored window-square envelope of rows 1..T-1 and of row T
+// [2, 160].
+constexpr int kItw160 = kWin, kItw320 = kWin + 2 * kHop, kIenv = kWin + 4 * kHop;
+
+template <int R>  // output rows per block; frames q0 .. q0 + R
+__global__ void __launch_bounds__(32 * (R + 1))
+istft_kernel(const float* __restrict__ spec, const float* __restrict__ tab,
+             float* __restrict__ out, int T, int length) {
+  __shared__ float2 xs[R + 1][kHop + 1];
+  __shared__ __align__(16) float fr[R + 1][kWin];
+  const int b = blockIdx.y, q0 = blockIdx.x * R;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, f = q0 + w;
+  if (f < T) {
+    const float2* sf = reinterpret_cast<const float2*>(spec) +
+                       (static_cast<size_t>(b) * T + f) * (kHop + 1);
+    for (int k = lane; k <= kHop; k += 32) {
+      float2 x = __ldg(sf + k);
+      if (k == 0 || k == kHop) x.y = 0.f;
+      xs[w][k] = x;
     }
+    __syncwarp();
+    const float2* tw = reinterpret_cast<const float2*>(tab + kItw160);
+    const float2* w320 = reinterpret_cast<const float2*>(tab + kItw320);
+
+    // pre-split: Z[k] = E + i O, E = X[k] + conj X[160-k],
+    // O = (X[k] - conj X[160-k]) e^{+2 pi i k / 320}; lane l takes
+    // k = k1 + 5 * bitrev5(l), where K1's lane l ends
+    const int k2 = __brev(lane) >> 27;
+    float2 v[5];
+#pragma unroll
+    for (int k1 = 0; k1 < 5; ++k1) {
+      const int k = k1 + 5 * k2;
+      const float2 a = xs[w][k], c = xs[w][kHop - k];
+      const float2 o = cmul(make_float2(a.x - c.x, a.y + c.y), __ldg(w320 + k));
+      v[k1] = make_float2(a.x + c.x - o.y, a.y - c.y + o.x);
+    }
+    // 32-point inverse DFTs across the lanes (decimation in time: K1's
+    // stages undone in reverse order): lane l ends with the sum over k2 of
+    // W32^-(l k2) Z[k1 + 5 k2].  The upper lane of a pair multiplies its
+    // own value by W_{2h}^-j before the exchange.
+#pragma unroll
+    for (int h = 1; h <= 16; h <<= 1) {
+      const bool upper = lane & h;
+      const float2 wt = __ldg(tw + 5 * (lane & (h - 1)) * (16 / h));  // W_{2h}^-j
+#pragma unroll
+      for (int k1 = 0; k1 < 5; ++k1) {
+        const float2 t = upper ? cmul(v[k1], wt) : v[k1];
+        const float2 o = make_float2(__shfl_xor_sync(0xffffffffu, t.x, h),
+                                     __shfl_xor_sync(0xffffffffu, t.y, h));
+        v[k1] = upper ? make_float2(o.x - t.x, o.y - t.y)
+                      : make_float2(t.x + o.x, t.y + o.y);
+      }
+    }
+    // the twiddle W160^-(lane k1), then the 5-point inverse DFT over k1:
+    // z[32 n1 + lane], windowed and scaled, to shared memory
+#pragma unroll
+    for (int k1 = 1; k1 < 5; ++k1) v[k1] = cmul(v[k1], __ldg(tw + lane * k1));
+#pragma unroll
+    for (int n1 = 0; n1 < 5; ++n1) {
+      float2 acc = v[0];
+#pragma unroll
+      for (int k1 = 1; k1 < 5; ++k1) {
+        const float2 p = cmul(v[k1], __ldg(tw + 32 * ((n1 * k1) % 5)));  // W5^-(n1 k1)
+        acc.x += p.x;
+        acc.y += p.y;
+      }
+      const int s = 64 * n1 + 2 * lane;
+      const float2 wv = __ldg(reinterpret_cast<const float2*>(tab + s));
+      *reinterpret_cast<float2*>(&fr[w][s]) = make_float2(acc.x * wv.x, acc.y * wv.y);
+    }
+  } else {
+    // frames past the last one contribute nothing
+    for (int s = lane; s < kWin; s += 32) fr[w][s] = 0.f;
+  }
+  __syncthreads();
+
+  // overlap-add: output row q0 + i = first half of frame i + 1 + second
+  // half of frame i (block-local); row T holds only frame T-1's second half
+  // (envelope row 1), rows past T are the zero pad up to `length`
+  const float* env = tab + kIenv;
+  float* ob = out + static_cast<size_t>(b) * length + static_cast<size_t>(q0) * kHop;
+  const int n_out = min(R * kHop, length - q0 * kHop);
+  for (int e = threadIdx.x; e < n_out; e += 32 * (R + 1)) {
+    const int i = e / kHop, n = e - i * kHop, r = q0 + i + 1;
+    ob[e] = r <= T ? (fr[i + 1][n] + fr[i][kHop + n]) / __ldg(env + (r == T) * kHop + n)
+                   : 0.f;
+  }
+}
+
+template <int R>
+void launch_istft(const float* spec, const float* tab, float* out, int B, int T,
+                  int length, cudaStream_t stream) {
+  const int Q = (length + kHop - 1) / kHop;  // output rows
+  istft_kernel<R><<<dim3((Q + R - 1) / R, B), 32 * (R + 1), 0, stream>>>(
+      spec, tab, out, T, length);
 }
 
 }  // namespace
@@ -223,16 +256,18 @@ int pdt_stft_f32(const float* x, const float* tab, float* out, int B, int L,
   return static_cast<int>(cudaGetLastError());
 }
 
-// spec [B, T, 161, 2] -> out [B, length]; inv [644, 160] stacks the
-// window-folded inverse's first-half columns over its second-half columns
-// (rows interleaved like the spectrum); env [2, 160] holds the floored
-// window-square envelope of rows 1..T-1 and of row T.
-int pdt_istft_f32(const float* spec, const float* inv, const float* env,
-                  float* out, int B, int T, int length, void* stream) {
-  const int Q = (length + kHop - 1) / kHop;
-  dim3 grid((kHop + BN - 1) / BN, (Q + BM - 1) / BM, B);
-  istft_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      spec, inv, env, out, T, length);
+// spec [B, T, 161, 2] -> out [B, length]; tab: the 1280-float window,
+// twiddle and envelope table (ops/cuda/stft.py::istft_table_np); rows: the
+// output rows a block owns, 4, 8 or 16.  T >= 1; spec 8-byte aligned.
+int pdt_istft_f32(const float* spec, const float* tab, float* out, int B, int T,
+                  int length, int rows, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rows) {
+    case 4: launch_istft<4>(spec, tab, out, B, T, length, s); break;
+    case 8: launch_istft<8>(spec, tab, out, B, T, length, s); break;
+    case 16: launch_istft<16>(spec, tab, out, B, T, length, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,7 +30,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argument types (all return a cudaError_t as int)
 _SIGNATURES = {
     "pdt_stft_f32": [_P, _P, _P, _I, _I, _I, _P],
-    "pdt_istft_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "pdt_istft_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pdt_enc_stage_f32": [_P] * 9 + [_I] * 9 + [_P],
 }
 

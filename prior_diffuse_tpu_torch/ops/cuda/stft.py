@@ -15,19 +15,24 @@ import torch
 from prior_diffuse_tpu_torch.ops import build
 from prior_diffuse_tpu_torch.ops.cuda._launch import (check_operand, on_cuda,
                                                       on_device, stream)
-from prior_diffuse_tpu_torch.signal.stft import (_envelope_np, dft_matrices_np,
-                                                 frame_count, hann_window,
+from prior_diffuse_tpu_torch.signal.stft import (_envelope_np, frame_count, hann_window,
                                                  istft_plain, stft_plain)
 
 __all__ = ["stft", "istft", "stft_plain", "istft_plain"]
 
 HOP, WIN = 160, 320
 FREQ = WIN // 2 + 1
+# K2's output rows per block, one of the kernel's instantiations
+# ``ISTFT_TILES``: the fastest at the serving shape [8, 301] and the eval
+# shape [6, 401] (``tools/kernel_probe.py k2``, PERF.md)
+ISTFT_TILES = (4, 8, 16)
+ISTFT_ROWS = 4
 
 
-def _interleave_cols(m: np.ndarray) -> np.ndarray:
-    """``[.., re_0..re_160, im_0..im_160]`` -> ``[.., re_0, im_0, re_1, ..]``."""
-    return np.stack([m[..., :FREQ], m[..., FREQ:]], axis=-1).reshape(*m.shape[:-1], -1)
+def _unit(n: int, count: int, sign: float) -> np.ndarray:
+    """``e^{sign 2 pi i m / n}`` for ``m < count``, (re, im) interleaved, f64."""
+    ang = sign * 2.0 * np.pi * np.arange(count) / n
+    return np.stack([np.cos(ang), np.sin(ang)], axis=-1).reshape(-1)
 
 
 def fft_table_np() -> np.ndarray:
@@ -35,33 +40,27 @@ def fft_table_np() -> np.ndarray:
     applies it), then ``e^{-2 pi i m / 160}`` for ``m < 160`` and
     ``e^{-2 pi i k / 320}`` for ``k <= 160``, (re, im) interleaved, built in
     float64 and cast to float32."""
-    def unit(n, count):
-        ang = -2.0 * np.pi * np.arange(count) / n
-        return np.stack([np.cos(ang), np.sin(ang)], axis=-1).reshape(-1)
-
-    return np.concatenate([hann_window(WIN).astype(np.float64), unit(HOP, HOP),
-                           unit(WIN, FREQ)]).astype(np.float32)
+    return np.concatenate([hann_window(WIN).astype(np.float64), _unit(HOP, HOP, -1),
+                           _unit(WIN, FREQ, -1)]).astype(np.float32)
 
 
-def istft_operands_np():
-    """K2's operands: the ``[644, 160]`` inverse (window folded in, in
-    float32 as ``istft_pallas`` folds it; rows interleaved like the
-    spectrum; first-half columns stacked over second-half columns) and the
-    ``[2, 160]`` envelope of rows 1..T-1 and of row T."""
-    _, inv = dft_matrices_np(WIN)
-    inv_win = inv.astype(np.float32) * hann_window(WIN)[None, :]  # [322, 320]
-    inv_win = _interleave_cols(inv_win.T).T  # rows 2f + c
-    stacked = np.concatenate([inv_win[:, :HOP], inv_win[:, HOP:]], axis=0)
+def istft_table_np() -> np.ndarray:
+    """K2's ``[1280]`` float32 table: the Hann window / 320 (synthesis
+    window and inverse scale in one factor), then ``e^{+2 pi i m / 160}``
+    for ``m < 160`` and ``e^{+2 pi i k / 320}`` for ``k < 160``, (re, im)
+    interleaved, then the floored window-square envelope of rows 1..T-1
+    and of row T (``[2, 160]``), built in float64 and cast to float32."""
     env = _envelope_np(3, WIN, HOP)  # rows 0..3 of a 3-frame signal
-    return (np.ascontiguousarray(stacked),
-            np.stack([env[HOP:2 * HOP], env[3 * HOP:]]).astype(np.float32))
+    return np.concatenate([hann_window(WIN).astype(np.float64) / WIN, _unit(HOP, HOP, 1),
+                           _unit(WIN, HOP, 1), env[HOP:2 * HOP], env[3 * HOP:]]
+                          ).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=None)
 def _device_operands(device: torch.device):
-    inv, env = istft_operands_np()
+    """K1's and K2's tables on ``device``."""
     put = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-    return put(fft_table_np()), put(inv), put(env)
+    return put(fft_table_np()), put(istft_table_np())
 
 
 def check_no_grad(x: torch.Tensor) -> None:
@@ -87,7 +86,7 @@ def stft(x: torch.Tensor) -> torch.Tensor:
                          "for a centred (reflect-padded) STFT")
     t = frame_count(length)
     out = torch.empty((b, t, FREQ, 2), dtype=torch.float32, device=x.device)
-    tab, _, _ = _device_operands(x.device)
+    tab, _ = _device_operands(x.device)
     if b:
         with on_device(x.device):
             err = build.library().pdt_stft_f32(
@@ -105,16 +104,19 @@ def istft(spec: torch.Tensor, length: int) -> torch.Tensor:
     if spec.ndim != 4 or spec.shape[2:] != (FREQ, 2):
         raise ValueError(f"istft kernel takes [B, T, 161, 2], got {tuple(spec.shape)}")
     check_operand("spec", spec, spec.device)
+    if spec.data_ptr() % 8:
+        raise ValueError("spec must start on an 8-byte boundary (the kernel "
+                         "loads its bins as float2)")
     b, t = spec.shape[:2]
     if length < 0 or t < 1:
         raise ValueError(f"need length >= 0 and T >= 1 (got {length}, {t})")
     out = torch.empty((b, length), dtype=torch.float32, device=spec.device)
-    _, inv, env = _device_operands(spec.device)
+    _, tab = _device_operands(spec.device)
     if b and length:
         with on_device(spec.device):
             err = build.library().pdt_istft_f32(
-                spec.data_ptr(), inv.data_ptr(), env.data_ptr(), out.data_ptr(), b, t,
-                length, stream(spec.device))
+                spec.data_ptr(), tab.data_ptr(), out.data_ptr(), b, t, length,
+                ISTFT_ROWS, stream(spec.device))
         build.check(err, "istft kernel")
         istft.launches += 1
     return out

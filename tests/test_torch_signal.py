@@ -8,6 +8,7 @@ another order).
 """
 
 import importlib
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -94,33 +95,61 @@ def test_wrappers_take_plain_path_on_cpu(rng):
     assert (kstft.stft.launches, kstft.istft.launches) == before
 
 
+class _Launched(Exception):
+    pass
+
+
+def test_istft_refuses_a_misaligned_spectrum_before_launch():
+    """K2 loads its bins as float2: the wrapper's kernel path refuses a
+    spectrum that does not start on an 8-byte boundary (a contiguous view
+    at an odd float offset) before it reaches the library, and passes an
+    aligned one on to the launch, with a tile the kernel is built for."""
+    flat = torch.zeros(1 + 2 * 3 * 161 * 2)
+
+    def library():
+        raise _Launched
+
+    with mock.patch.object(kstft, "on_cuda", lambda x: True), \
+            mock.patch.object(kstft.build, "library", library):
+        with pytest.raises(ValueError, match="8-byte boundary"):
+            kstft.istft(flat[1:].view(2, 3, 161, 2), 320)
+        with pytest.raises(_Launched):
+            kstft.istft(flat[:-1].view(2, 3, 161, 2), 320)
+    assert kstft.ISTFT_ROWS in kstft.ISTFT_TILES
+
+
+def _numerators(y: np.ndarray, t_frames: int) -> np.ndarray:
+    """``y`` times the window-square envelope it was divided by (1 past
+    row T).  The last frame's tail is divided by an envelope down to ~1e-8,
+    which scales float32 rounding by 1/env there: compare numerators."""
+    env = np.ones(y.shape[-1])
+    tail = pstft._envelope_np(t_frames, 320, 160)[160:160 + y.shape[-1]]
+    env[:len(tail)] = tail
+    return y * env
+
+
 @pytest.mark.parametrize("length", [161, 2017])
 def test_kernel_operands_reproduce_plain(rng, length):
-    """K2's formulation, emulated in numpy with the kernel's own operands
-    and index arithmetic (output row q = [spec_{q+1} | spec_q] @ stacked
-    inverse / envelope), equals the plain version."""
+    """K2's formulation with its own table and index arithmetic, the frame
+    inverse taken exactly (float64 irfft of the Hermitian spectrum): frames
+    times the table's window / 320, output row q = first half of frame q + 1
+    + second half of frame q, divided by envelope row 1 for q + 1 = T and
+    row 0 before, zero past T; equals the plain version."""
     x = rng.standard_normal((1, length)).astype(np.float32)
     t_frames = length // 160 + 1
-    want = pstft.stft_plain(torch.from_numpy(x)).numpy()
-    inv, env = kstft.istft_operands_np()
-    packed = want[0].reshape(t_frames, 322).astype(np.float64)
+    spec = pstft.stft_plain(torch.from_numpy(x)).numpy()
+    tab = kstft.istft_table_np().astype(np.float64)
+    frames = np.fft.irfft(spec[0, ..., 0] + 1j * spec[0, ..., 1], 320) * 320 * tab[:320]
+    frames = np.concatenate([frames, np.zeros((1, 320))])  # frame T: none
+    env = tab[960:].reshape(2, 160)
     out_len = length + 250
     rows = -(-out_len // 160)
-    out = np.zeros(rows * 160)
-    env_s = np.ones(rows * 160)
-    for q in range(rows):
-        r = q + 1
-        if r > t_frames:
-            continue
-        a = np.concatenate([packed[r] if r < t_frames else np.zeros(322),
-                            packed[r - 1]])
-        env_s[q * 160:(q + 1) * 160] = env[int(r == t_frames)]
-        out[q * 160:(q + 1) * 160] = (a @ inv) / env_s[q * 160:(q + 1) * 160]
-    got = pstft.istft_plain(torch.from_numpy(want), length=out_len).numpy()[0]
-    # the last frame's tail is divided by an envelope down to ~1e-8, which
-    # scales float32 rounding by 1/env: compare numerators
-    np.testing.assert_allclose(out[:out_len] * env_s[:out_len],
-                               got * env_s[:out_len], rtol=0, atol=1e-5)
+    out = np.zeros((rows, 160))
+    for q in range(min(rows, t_frames)):
+        out[q] = (frames[q + 1, :160] + frames[q, 160:]) / env[int(q + 1 == t_frames)]
+    got = pstft.istft_plain(torch.from_numpy(spec), length=out_len).numpy()[0]
+    np.testing.assert_allclose(_numerators(out.reshape(-1)[:out_len], t_frames),
+                               _numerators(got, t_frames), rtol=0, atol=1e-5)
 
 
 def _k1_emulate(x: np.ndarray, tab=None) -> np.ndarray:
@@ -155,7 +184,7 @@ def _k1_emulate(x: np.ndarray, tab=None) -> np.ndarray:
         other = v[..., lane ^ h]
         wt = tw[5 * (lane & (h - 1)) * (16 // h)]
         v = np.where((lane & h) != 0, (other - v) * wt, v + other).astype(np.complex64)
-    k2 = np.array([int(f"{i:05b}"[::-1], 2) for i in range(32)])
+    k2 = np.array([_bitrev5(i) for i in range(32)])
     big_z = np.empty(v.shape[:-2] + (160,), np.complex64)
     for k1 in range(5):
         big_z[..., k1 + 5 * k2] = v[..., k1, :]
@@ -199,6 +228,137 @@ def test_fft_table_matches_its_definition():
     np.testing.assert_array_equal(tab[321:640:2], w160.imag.astype(np.float32))
     np.testing.assert_array_equal(tab[640::2], w320.real.astype(np.float32))
     np.testing.assert_array_equal(tab[641::2], w320.imag.astype(np.float32))
+
+
+def _bitrev5(i: int) -> int:
+    return int(f"{i:05b}"[::-1], 2)
+
+
+def _k2_emulate(spec: np.ndarray, length: int, tab=None, zero_edge_imag: bool = True,
+                rows: int = kstft.ISTFT_ROWS) -> np.ndarray:
+    """K2 (``csrc/stft.cu::istft_kernel``) in numpy, in complex64, step by
+    step as one warp computes a frame and then the block its rows: Im X[0]
+    and Im X[160] set to 0 (unless ``zero_edge_imag`` is False), the
+    pre-split Z[k] = E + i O (E = X[k] + conj X[160-k], O = (X[k] - conj
+    X[160-k]) e^{+2 pi i k / 320}) with lane l taking k = k1 + 5
+    bitrev5(l), radix-2 decimation-in-time butterflies across the 32 lanes
+    (K1's stages undone, the upper lane twiddled), the twiddle
+    W160^-(lane k1), a 5-point inverse DFT in each lane (lane l holds
+    z[32 n1 + l]), the window / 320; then blocks of ``rows`` output rows
+    over frames q0 .. q0 + rows (zero past T): overlap-add, the envelope divide,
+    zero past row T, trim to ``length``.  All constants come from ``tab``
+    (default ``istft_table_np``)."""
+    tab = kstft.istft_table_np() if tab is None else tab
+    win = tab[:320]
+    tw = (tab[320:640:2] + 1j * tab[321:640:2]).astype(np.complex64)
+    w320 = (tab[640:960:2] + 1j * tab[641:960:2]).astype(np.complex64)
+    env = tab[960:].reshape(2, 160)
+    x = (spec[..., 0] + 1j * spec[..., 1]).astype(np.complex64)  # [B, T, 161]
+    if zero_edge_imag:
+        x[..., 0] = x[..., 0].real
+        x[..., 160] = x[..., 160].real
+    lane = np.arange(32)
+    k = np.arange(5)[:, None] + 5 * np.array([_bitrev5(i) for i in lane])  # [k1, lane]
+    a, c = x[..., k], np.conj(x[..., 160 - k])
+    v = (a + c) + 1j * ((a - c) * w320[k])
+    for h in (1, 2, 4, 8, 16):
+        upper = (lane & h) != 0
+        t = np.where(upper, v * tw[5 * (lane & (h - 1)) * (16 // h)], v)
+        other = t[..., lane ^ h]
+        v = np.where(upper, other - t, t + other).astype(np.complex64)
+    for k1 in range(1, 5):
+        v[..., k1, :] = v[..., k1, :] * tw[lane * k1]
+    z = []
+    for n1 in range(5):
+        acc = v[..., 0, :]
+        for k1 in range(1, 5):
+            acc = acc + v[..., k1, :] * tw[32 * ((n1 * k1) % 5)]
+        z.append(acc)
+    z = np.stack(z, axis=-2).reshape(*x.shape[:-1], 160)  # n = 32 n1 + lane
+    frames = np.stack([z.real, z.imag], axis=-1).reshape(*x.shape[:-1], 320) * win
+
+    b, t_frames = x.shape[:2]
+    n_rows = -(-length // 160)
+    out = np.zeros((b, n_rows + rows, 160), np.float32)
+    for q0 in range(0, n_rows, rows):
+        fr = np.zeros((b, rows + 1, 320), np.float32)
+        have = frames[:, q0:q0 + rows + 1]
+        fr[:, :have.shape[1]] = have
+        for i in range(rows):
+            r = q0 + i + 1
+            if r <= t_frames:
+                out[:, q0 + i] = (fr[:, i + 1, :160] + fr[:, i, 160:]) / env[int(r == t_frames)]
+    return out.reshape(b, -1)[:, :length]
+
+
+@pytest.mark.parametrize("length", [161, 2017, 48000])
+@pytest.mark.parametrize("out_delta", [0, -100, 333])
+def test_k2_emulation_reproduces_plain(rng, length, out_delta):
+    """K2's FFT and tiling with its table (float64 built, float32 stored)
+    equal the plain ISTFT on an STFT's spectrum, at an output length equal
+    to, 100 shorter than and 333 longer than the signal (numerators at
+    row T, 1e-5 x max|ref|)."""
+    x = rng.standard_normal((2, length)).astype(np.float32)
+    spec = pstft.stft_plain(torch.from_numpy(x)).numpy()
+    out_len = length + out_delta
+    want = pstft.istft_plain(torch.from_numpy(spec), length=out_len).numpy()
+    got = _k2_emulate(spec, out_len)
+    _close_rel(_numerators(got, spec.shape[1]), _numerators(want, spec.shape[1]), 1e-5)
+
+
+@pytest.mark.parametrize("rows", kstft.ISTFT_TILES)
+@pytest.mark.parametrize("edge", ["1", "R", "R+1", "2R+1"])
+@pytest.mark.parametrize("out_len", ["short", "in_row_t", "past_t"])
+def test_k2_emulation_on_a_raw_spectrum(rng, rows, edge, out_len):
+    """On a random spectrum whose DC and Nyquist bins have imaginary parts
+    (as the DDPM's estimate has), at the edges of each tile the kernel is
+    built for (T = 1, R, R + 1, 2R + 1 with R rows a block), with an output
+    shorter than one row, ending inside row T, or reaching 2 rows past T:
+    K2 equals the plain ISTFT."""
+    t_frames = {"1": 1, "R": rows, "R+1": rows + 1, "2R+1": 2 * rows + 1}[edge]
+    spec = rng.standard_normal((3, t_frames, 161, 2)).astype(np.float32)
+    assert np.abs(spec[..., [0, 160], 1]).min() > 0
+    length = {"short": 100, "in_row_t": t_frames * 160 - 50,
+              "past_t": (t_frames + 2) * 160 + 37}[out_len]
+    want = pstft.istft_plain(torch.from_numpy(spec), length=length).numpy()
+    got = _k2_emulate(spec, length, rows=rows)
+    _close_rel(_numerators(got, t_frames), _numerators(want, t_frames), 1e-5)
+
+
+@pytest.mark.parametrize("fault", ["symmetric_window", "imag_dc_kept"])
+def test_k2_emulation_sees_a_fault(rng, fault):
+    """The emulation above can fail: with the symmetric Hann window in K2's
+    table, or with Im X[0] and Im X[160] kept, it misses the plain ISTFT by
+    more than 1e-3 x max|ref|."""
+    spec = rng.standard_normal((2, 13, 161, 2)).astype(np.float32)
+    tab = kstft.istft_table_np()
+    if fault == "symmetric_window":
+        tab[:320] = torch.hann_window(320, periodic=False).numpy() / 320
+    length = (spec.shape[1] - 1) * 160
+    got = _k2_emulate(spec, length, tab, zero_edge_imag=fault != "imag_dc_kept")
+    want = pstft.istft_plain(torch.from_numpy(spec), length=length).numpy()
+    assert np.abs(got - want).max() > 1e-3 * np.abs(want).max()
+
+
+def test_istft_table_matches_its_definition():
+    """K2's table: the plain version's float32 Hann window / 320, the
+    twiddles e^{+2 pi i m / 160} and e^{+2 pi i k / 320}, and the envelope
+    rows 1..T-1 and T, each computed in float64 and rounded once to
+    float32."""
+    tab = kstft.istft_table_np()
+    assert tab.dtype == np.float32 and tab.shape == (1280,)
+    np.testing.assert_array_equal(
+        tab[:320], (pstft.hann_window(320).astype(np.float64) / 320).astype(np.float32))
+    w160 = np.exp(2j * np.pi * np.arange(160) / 160)
+    w320 = np.exp(2j * np.pi * np.arange(160) / 320)
+    np.testing.assert_array_equal(tab[320:640:2], w160.real.astype(np.float32))
+    np.testing.assert_array_equal(tab[321:640:2], w160.imag.astype(np.float32))
+    np.testing.assert_array_equal(tab[640:960:2], w320.real.astype(np.float32))
+    np.testing.assert_array_equal(tab[641:960:2], w320.imag.astype(np.float32))
+    env = pstft._envelope_np(5, 320, 160).astype(np.float32)
+    np.testing.assert_array_equal(tab[960:1120], env[160:320])  # any row 1..T-1
+    np.testing.assert_array_equal(tab[960:1120], env[640:800])
+    np.testing.assert_array_equal(tab[1120:], env[800:])  # row T
 
 
 @pytest.mark.parametrize("feat_type", ["normal", "sqrt", "cubic", "log_1x", "none"])

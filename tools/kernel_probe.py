@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Two probes of the PyTorch + CUDA port on one GPU (development tools; the
-port and ``chip_smoke.py`` do not use them).
+"""Three probes of the PyTorch + CUDA port on one GPU (development tools;
+the port and ``chip_smoke.py`` do not use them).
 
     python3 tools/kernel_probe.py k3 [--json PATH]
+    python3 tools/kernel_probe.py k2 [--json PATH]
     python3 tools/kernel_probe.py step [--json PATH]
 
 ``k3`` attributes K3's device time by rebuilding the kernels from patched
@@ -17,6 +18,18 @@ built is timed first and last; on the first run the card's power draw and
 SM clock are read while the five stages run back to back for 2 s.  A
 patch whose text no longer occurs once in the source stops the probe.
 
+``k2`` times K2 (``csrc/stft.cu``) at each tile it is built for (4, 8
+and 16 output rows a block, ``ops/cuda/stft.py::ISTFT_TILES``), twice in
+turns, by CUDA-graph replay, at the serving shape (batch 8 x 3 s,
+``[8, 301, 161, 2]`` -> ``[8, 48000]``), the eval shape (a cv batch of
+6 x 4 s, ``[6, 401, 161, 2]`` -> ``[6, 64000]``) and 8 x 30 s
+(``[8, 3001, 161, 2]``, ~10 waves of blocks); each result is held against
+the plain version as ``chip_smoke.py`` holds it.  The power draw and SM
+clock are read while the path's tile runs at the serving shape.  Then, at
+the path's tile (``ISTFT_ROWS``), it attributes the time as ``k3`` does,
+from patched builds: the inverse FFT taken away (loads, pre-split,
+window, overlap-add left), and the output stores taken away.
+
 ``step`` measures how far one train step of ``conf/diff.yml``
 (``--joint --sigma``, batch 6 x 48000, weights from a seed) moves when its
 STFT changes: the same step is taken from one state with the plain STFT,
@@ -26,7 +39,7 @@ its table; K1 times ``1 + r``), and the losses, each net's gradient and
 Adam update are compared with the first run's as ``chip_smoke.py``
 compares the step through K1 with the plain step.
 
-Both need a CUDA card; ``k3`` also needs ``nvcc``.
+All need a CUDA card; ``k3`` and ``k2`` also need ``nvcc``.
 """
 
 from __future__ import annotations
@@ -52,7 +65,7 @@ import chip_smoke  # noqa: E402
 from prior_diffuse_tpu_torch.ops import build  # noqa: E402
 
 # variant -> [(text of csrc/enc_chain.cu, replacement)]
-PATCHES = {
+K3_PATCHES = {
     "as built": [],
     "1xTF32 (hi x hi products only)": [
         ("for (int j = 0; j < N; ++j) mma(d[i][j], a[i].lo, b[j].x, b[j].y);",
@@ -67,14 +80,24 @@ PATCHES = {
     "no output stores": [
         ("if (r < rows) {", "if (r < rows && o[i][0][2 * h] == 1234.5f) {")],
 }
-
-
-def patched_library(name: str, edits, work: Path) -> ctypes.CDLL:
-    """The kernels of ``csrc/`` built with ``edits`` applied to enc_chain.cu,
+# variant -> [(text of csrc/stft.cu, replacement)]
+K2_PATCHES = {
+    "as built": [],
+    "no inverse FFT (loads, pre-split, window, overlap-add)": [
+        ("for (int h = 1; h <= 16; h <<= 1) {", "for (int h = 1; h <= 0; h <<= 1) {"),
+        ("for (int k1 = 1; k1 < 5; ++k1) v[k1] = cmul(v[k1], __ldg(tw + lane * k1));", ""),
+        ("const float2 p = cmul(v[k1], __ldg(tw + 32 * ((n1 * k1) % 5)));",
+         "const float2 p = v[k1];")],
+    "no output stores": [
+        ("ob[e] = r <= T ?", "const float y = r <= T ?"),
+        ("                   : 0.f;\n", "                   : 0.f;\n    if (y == 1234.5f) ob[e] = y;\n")],
+}
+def patched_library(name: str, source: str, edits, work: Path) -> ctypes.CDLL:
+    """The kernels of ``csrc/`` built with ``edits`` applied to ``source``,
     with the flags and entry points of ``ops/build.py``."""
-    src = work / name.replace(" ", "_").replace("(", "").replace(")", "")
+    src = work / "".join(c if c.isalnum() else "_" for c in name)
     shutil.copytree(build.SRC_DIR, src)
-    path = src / "enc_chain.cu"
+    path = src / source
     text = path.read_text()
     for old, new in edits:
         if text.count(old) != 1:
@@ -144,8 +167,8 @@ def k3_probe(card: str) -> list:
     stages = stage_inputs_of_a_forward()
     results = []
     with tempfile.TemporaryDirectory(prefix="k3_probe_") as work:
-        for i, name in enumerate(list(PATCHES) + ["as built"]):
-            lib = patched_library(f"{i} {name}", PATCHES[name], Path(work))
+        for i, name in enumerate(list(K3_PATCHES) + ["as built"]):
+            lib = patched_library(f"{i} {name}", "enc_chain.cu", K3_PATCHES[name], Path(work))
             with mock.patch.object(build, "library", lambda: lib):
                 ms = [chip_smoke.graph_ms(lambda s=s: cb.enc_stage(*s)) for s in stages]
                 power = power_under(lambda: [cb.enc_stage(*s) for s in stages]) if (
@@ -153,6 +176,48 @@ def k3_probe(card: str) -> list:
             results.append({"variant": name, "stage_ms": ms, "ms": sum(ms), **power})
             print(f"{name}: {sum(ms):.4f} ms (stages " + ", ".join(f"{v:.4f}" for v in ms)
                   + f"){'; ' + json.dumps(power) if power else ''}; card {card}", flush=True)
+    return results
+
+
+def k2_probe(card: str) -> list:
+    from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for name, b, n in (("serving", 8, 48000), ("eval", 6, 64000), ("8 x 30 s", 8, 480000)):
+        spec = kstft.stft_plain(torch.randn(b, n, generator=g, device="cuda"))
+        cases.append((f"{name} {list(spec.shape)}", spec, n, kstft.istft_plain(spec, length=n)))
+    results = []
+    for rows in kstft.ISTFT_TILES * 2:
+        row = {"variant": "as built", "rows": rows}
+        with mock.patch.object(kstft, "ISTFT_ROWS", rows):
+            for label, spec, n, ref in cases:
+                err = chip_smoke.expect_close(f"K2 ({rows} rows a block) {label}",
+                                              kstft.istft(spec, n), ref)
+                row[label] = {"graph_ms": chip_smoke.graph_ms(lambda: kstft.istft(spec, n)),
+                              "max_abs_err": err}
+            if rows == kstft.ISTFT_ROWS and not any(r["rows"] == rows for r in results):
+                _, spec, n, _ = cases[0]
+                row.update(power_under(lambda: kstft.istft(spec, n)))
+        results.append(row)
+        print(f"{rows} rows a block: " + ", ".join(
+            f"{label} {row[label]['graph_ms']:.5f} ms (max|err| {row[label]['max_abs_err']:.3e})"
+            for label, *_ in cases) + " (graph replays)"
+            + (f"; {row['power_w']} W, {row['sm_mhz']} MHz" if "power_w" in row else "")
+            + f"; card {card}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="k2_probe_") as work:
+        for i, name in enumerate(list(K2_PATCHES) + ["as built"]):
+            lib = patched_library(f"{i} {name}", "stft.cu", K2_PATCHES[name], Path(work))
+            row = {"variant": name, "rows": kstft.ISTFT_ROWS}
+            with mock.patch.object(build, "library", lambda: lib):
+                for label, spec, n, ref in cases:
+                    # a patched kernel computes wrong values on purpose
+                    row[label] = {"graph_ms": chip_smoke.graph_ms(lambda: kstft.istft(spec, n)),
+                                  "max_abs_err": float((kstft.istft(spec, n) - ref).abs().max())}
+            results.append(row)
+            print(f"{name} ({row['rows']} rows a block): " + ", ".join(
+                f"{label} {row[label]['graph_ms']:.5f} ms" for label, *_ in cases)
+                + f" (graph replays, patched build); card {card}", flush=True)
     return results
 
 
@@ -165,7 +230,7 @@ def step_probe(card: str) -> list:
     dev = torch.device("cuda:0")
     window = torch.hann_window(320, device=dev)
     g = torch.Generator(device=dev).manual_seed(123)
-    tab, inv, env = kstft._device_operands(dev)
+    tab, itab = kstft._device_operands(dev)
     wrong = tab.clone()
     wrong[:320] = torch.hann_window(320, periodic=False, device=dev)
 
@@ -176,7 +241,7 @@ def step_probe(card: str) -> list:
     k1 = kstft.stft  # the variants run while kstft.stft is patched to them
 
     def k1_wrong_window(x):
-        with mock.patch.object(kstft, "_device_operands", lambda device: (wrong, inv, env)):
+        with mock.patch.object(kstft, "_device_operands", lambda device: (wrong, itab)):
             return k1(x)
 
     variants = {
@@ -237,7 +302,7 @@ def step_probe(card: str) -> list:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probe", choices=("k3", "step"))
+    ap.add_argument("probe", choices=("k3", "k2", "step"))
     ap.add_argument("--json", help="also write the results to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -246,7 +311,7 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_grad_enabled(False)
-    results = (k3_probe if args.probe == "k3" else step_probe)(card)
+    results = {"k3": k3_probe, "k2": k2_probe, "step": step_probe}[args.probe](card)
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps({"card": card, "results": results}))
