@@ -13,12 +13,15 @@ Phases (each passes or ends the script with a non-zero exit):
    ``[8, 48000]``, K2 ISTFT on its spectrum and on a seeded random
    spectrum ``[8, 301, 161, 2]`` whose DC and Nyquist bins have imaginary
    parts (as the DDPM's estimate has), K3 at the five encoder stages of
-   both nets at T = 301 with a per-batch bias; times from CUDA events
-   after warm-up, device times from ``torch.profiler`` and from CUDA-graph
+   both nets at T = 301 with a per-batch bias, in f32 and (K3-bf16) in
+   bf16, and K3-bf16 on a stage whose gate halves cancel, where a chain that
+   kept y in bf16 must miss the bound; times from CUDA events after
+   warm-up, device times from ``torch.profiler`` and from CUDA-graph
    replays; K1 and K2 timed in turns against their library yardsticks
    (``torch.stft``, ``torch.istft``), and marked slower on device where
-   their profiler time exceeds the yardstick's; each kernel's bound (bytes
-   or f32 operations at the H100's published peaks) from the shapes; then
+   their profiler time exceeds the yardstick's; each kernel's bound (bytes,
+   or operations at the H100's published f32 or bf16 peak) from the
+   shapes; then
    off those shapes: batch 1 and 3, odd lengths, K2 on random spectra at
    the edges of each tile it is built for (R = 4, 8, 16 rows a block; T =
    1, R, R + 1, 2R + 1; an output shorter than one row, ending in row T,
@@ -30,7 +33,15 @@ Phases (each passes or ends the script with a non-zero exit):
    fast-6 schedule, f32, plain and ``--sigma`` modes; output finite and
    ``[8, 48000]``, equal to the same ``Enhancer`` run through the plain
    versions on the card, and launch counts K1 = 1, K2 = 1, K3 = 35;
-4. five requests of 1-4 s through ``serving.enhance.enhance_files``;
+   then the same batch in bf16 (``Enhancer(dtype=torch.bfloat16)``: K3-bf16
+   in every encoder stage, the dual decoder, the bf16 sampler; K1 and K2 in
+   f32), plain and ``--sigma``: through the kernels against the plain
+   versions (relative RMS), against the f32 enhancer on the same weights and
+   draws (between a floor and a ceiling), launch counts K1 = 1, K2 = 1,
+   K3-bf16 = 35, K3 = 0; its time and layer breakdown;
+4. five requests of 1-4 s through ``serving.enhance.enhance_files`` in f32
+   and bf16; one 30 s wav through ``serving.streaming.enhance_long`` in bf16
+   (finite, seam-free) and through ``prior_only_server`` (K1 and K2 only);
 5. training at full width: ``ComplexDDPMTrainer`` of ``conf/diff.yml``
    (batch 6 x 48000, ``--joint --sigma``, weights from a seed) on a
    synthetic corpus of 24 + 8 utterances of 3-4 s.  K1 against its plain
@@ -72,9 +83,20 @@ T_FRAMES = LENGTH // 160 + 1
 # order (FMA chains in the kernels, blocked GEMMs in cuBLAS), so the bound
 # is relative to the largest reference value.
 KERNEL_RTOL = 1e-5
+# K3-bf16 vs its plain version: both round y, the gate operand, comb and
+# the output to bf16 at the same points from f32 sums taken in another
+# order, so an output may land one bf16 step apart: 2^-7 of the largest.
+KERNEL_BF16_RTOL = 2.0 ** -7
 # Whole serving path: 35 K3 calls and 6 chain steps carry those
 # differences through 7 UNet forwards and the squaring of decompression.
 PATH_RTOL = 1e-3
+# The bf16 batch through the kernels vs through the plain versions, and vs
+# the f32 enhancer on the same weights and draws (relative RMS; the bounds
+# are stated in PERF.md).  bf16 and f32 sit ~1e-2 apart on the card, so the
+# second is held between a floor and a ceiling: a path that quietly stayed
+# in f32 falls under the floor.
+BF16_PATH_RMS = 2e-2
+BF16_VS_F32_RMS = (1e-3, 3e-2)
 # One train step through K1 against the same step through the plain STFT.
 # The step is chaotic in its STFT's rounding: any change of rounding (an FFT
 # in place of the plain version's float32 GEMM, torch.stft, or the plain
@@ -196,15 +218,16 @@ def fmt(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
-# Published H100 SXM peaks (dense): f32 outside the tensor cores, TF32 on
-# them, and the HBM3 rate.
-PEAK_F32, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
+# Published H100 SXM peaks (dense): f32 outside the tensor cores, TF32 and
+# bf16 on them, and the HBM3 rate.
+PEAK_F32, PEAK_TF32, PEAK_BF16, PEAK_BYTES = 67e12, 495e12, 989e12, 3.35e12
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32) -> dict:
     """Least time of the work on the card: the larger of the bytes over the
-    memory rate and the f32 operations over the f32 (non-tensor) peak."""
-    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+    memory rate and the operations over ``peak`` (default the f32
+    non-tensor rate)."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
@@ -228,13 +251,15 @@ def istft_bound(b: int, t: int, length: int) -> dict:
 def enc_stage_work(xin, ops, pad: int) -> tuple:
     """(operations, bytes) of one encoder stage: per output row the window
     product [K] x [K, 64], the two 32 x 32 gate blocks and W2 [32, 64];
-    the stage input, operands and output once each."""
+    the stage input, operands, per-batch bias and output once each, at
+    their element sizes (bf16 input, output and product weights in bf16)."""
     b, tin, f, c = xin.shape
     k = ops["kernel_f"]
     rows = b * (tin - 1 + pad) * ((f - k) // 2 + 1)
     flops = rows * 2 * (2 * k * c * 64 + 2 * 32 * 32 + 32 * 64)
-    operands = sum(ops[n].numel() for n in ("wmain", "wg", "bg", "w2", "b2", "alpha"))
-    nbytes = 4 * (xin.numel() + operands + b * 64 + rows * 64)
+    operands = sum(ops[n].numel() * ops[n].element_size()
+                   for n in ("wmain", "wg", "bg", "w2", "b2", "alpha"))
+    nbytes = xin.element_size() * (xin.numel() + rows * 64) + operands + 4 * b * 64
     return flops, nbytes
 
 
@@ -246,6 +271,7 @@ def max_err(got, want) -> tuple[float, float]:
         fail(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
         fail("non-finite values")
+    got, want = got.float(), want.float()
     return float((got - want).abs().max()), float(want.abs().max())
 
 
@@ -339,14 +365,16 @@ def plain_versions():
     with mock.patch.object(kstft, "stft", kstft.stft_plain), \
             mock.patch.object(kstft, "istft",
                               lambda spec, length: kstft.istft_plain(spec, length=length)), \
-            mock.patch.object(convblock, "enc_stage", convblock.enc_stage_plain):
+            mock.patch.object(convblock, "enc_stage", convblock.enc_stage_plain), \
+            mock.patch.object(convblock, "enc_stage_bf16", convblock.enc_stage_plain):
         yield
 
 
 def counters():
     from prior_diffuse_tpu_torch.ops.cuda import convblock, stft as kstft
 
-    return {"stft": kstft.stft, "istft": kstft.istft, "enc_stage": convblock.enc_stage}
+    return {"stft": kstft.stft, "istft": kstft.istft, "enc_stage": convblock.enc_stage,
+            "enc_stage_bf16": convblock.enc_stage_bf16}
 
 
 def check_kernels(device, nets):
@@ -410,22 +438,64 @@ def check_kernels(device, nets):
               f"{r['slower_than_library']} on events, {r['slower_on_device']} on device",
               flush=True)
 
-    g = torch.Generator(device=device).manual_seed(2)
-    worst = 0.0
-    for name, net in zip(("DiffUNet", "DiffUNet1"), nets):
-        temb = None
-        if name == "DiffUNet1":
-            t = torch.rand(BATCH, generator=g, device=device) * 40.0  # fractional t
-            temb = net.time_embedding(t)
-        x = torch.randn(BATCH, T_FRAMES, 161, 2, generator=g, device=device)
-        err, k3 = check_encoder(name, cb.pack_encoder(net.core.en), x, temb)
-        worst = max(worst, err)
-    # K3's row: the five stages of one DiffUNet1 forward; no single PyTorch
-    # call computes a stage (conv, two 1x1 gate convs, the cross gate, a
-    # 1x1 conv and PReLU), so it has no library yardstick
-    rows["enc_stage"] = {"max_abs_err": worst, **k3, "library_ms": None,
-                         "library_device_ms": None}
+    # K3's rows: the five stages of one DiffUNet1 forward, in f32 and in
+    # bf16; no single PyTorch call computes a stage (conv, two 1x1 gate
+    # convs, the cross gate, a 1x1 conv and PReLU), so no library yardstick
+    for key, dtype in (("enc_stage", torch.float32), ("enc_stage_bf16", torch.bfloat16)):
+        g = torch.Generator(device=device).manual_seed(2)
+        worst = 0.0
+        for name, net in zip(("DiffUNet", "DiffUNet1"), nets):
+            temb = None
+            if name == "DiffUNet1":
+                t = torch.rand(BATCH, generator=g, device=device) * 40.0  # fractional t
+                temb = net.time_embedding(t).to(dtype)
+            x = torch.randn(BATCH, T_FRAMES, 161, 2, generator=g, device=device).to(dtype)
+            err, k3 = check_encoder(name, cb.pack_encoder(net.core.en, dtype), x, temb)
+            worst = max(worst, err)
+        rows[key] = {"max_abs_err": worst, **k3, "library_ms": None,
+                     "library_device_ms": None}
+    check_bf16_keeps_y_f32(device)
     return rows
+
+
+def check_bf16_keeps_y_f32(device) -> None:
+    """K3-bf16 on a serving-size stage-2 input whose left and right window
+    halves carry biases of +48 and -48 under constant gates (wg = 0): y is
+    large and the cross gate small.  Inputs and weights on coarse binary
+    grids make y exact in f32 in any summation order.  The kernel must meet
+    its bound against the plain version, and a chain that rounds y to bf16
+    before the combine must miss it."""
+    import torch
+
+    from prior_diffuse_tpu_torch.ops.cuda import convblock as cb
+
+    g = torch.Generator(device=device).manual_seed(13)
+    grid = lambda shape, n, scale: (torch.randint(-n, n + 1, shape, generator=g,
+                                                  device=device) / scale).bfloat16()
+    ops = {"kernel_f": 3, "pre": None, "wcsum": None, "wmain": grid((192, 64), 4, 16.0),
+           "wg": torch.zeros(64, 64, device=device, dtype=torch.bfloat16),
+           "bg": torch.zeros(64, device=device), "w2": grid((32, 64), 8, 16.0),
+           "b2": torch.zeros(64, device=device),
+           "alpha": torch.tensor([0.25], device=device)}
+    x = grid((BATCH, T_FRAMES + 1, 79, 32), 8, 8.0)
+    bias_b = torch.cat([torch.full((BATCH, 32), 48.0, device=device),
+                        torch.full((BATCH, 32), -48.0, device=device)], dim=1)
+    want = cb.enc_stage_plain(x, ops, bias_b, 0)
+    expect_close(f"K3-bf16 stage 2 {tuple(x.shape)}, cancelling gate halves",
+                 cb.enc_stage_bf16(x, ops, bias_b, 0), want, KERNEL_BF16_RTOL)
+    # the plain chain with y rounded to bf16 before the cross gate
+    t, fo = x.shape[1] - 1, (x.shape[2] - 3) // 2 + 1
+    col = torch.cat([x[:, kt:kt + t, kf:kf + 2 * (fo - 1) + 1:2]
+                     for kt in range(2) for kf in range(3)], dim=-1).float()
+    y = (col @ ops["wmain"].float() + bias_b[:, None, None]).bfloat16().float()
+    m = y @ ops["wg"].float() + ops["bg"]
+    comb = y[..., :32] * torch.sigmoid(m[..., 32:]) + y[..., 32:] * torch.sigmoid(m[..., :32])
+    y2 = comb.bfloat16().float() @ ops["w2"].float() + ops["b2"]
+    err, ref = max_err(torch.where(y2 >= 0, y2, ops["alpha"] * y2).bfloat16(), want)
+    print(f"  a chain with y in bf16: max|err| {err:.3e} (bound {KERNEL_BF16_RTOL * ref:.3e})",
+          flush=True)
+    if err <= 4 * KERNEL_BF16_RTOL * ref:
+        fail("the cancelling-stage check does not tell y in bf16 from y in f32")
 
 
 def check_encoder(name, packed, x, temb):
@@ -435,18 +505,24 @@ def check_encoder(name, packed, x, temb):
     bounds, summed over the stages."""
     from prior_diffuse_tpu_torch.ops.cuda import convblock as cb
 
+    import torch
+
+    bf16 = packed[0][0]["wmain"].dtype == torch.bfloat16
+    kernel = cb.enc_stage_bf16 if bf16 else cb.enc_stage
+    label, rtol, peak = ("K3-bf16", KERNEL_BF16_RTOL, PEAK_BF16) if bf16 else (
+        "K3", KERNEL_RTOL, PEAK_F32)
     worst, ms_sum, plain_sum, dev_sum, graph_sum, flops, nbytes = (0.0,) * 7
     for i, (ops, tp) in enumerate(packed, start=1):
         xin, bias_b, pad = cb.stage_inputs(x, ops, tp, temb)
         want = cb.enc_stage_plain(xin, ops, bias_b, pad)
-        err = expect_close(f"K3 {name} stage {i} {tuple(xin.shape)} pad={pad}",
-                           cb.enc_stage(xin, ops, bias_b, pad), want)
-        ms = cuda_ms(lambda: cb.enc_stage(xin, ops, bias_b, pad))
+        err = expect_close(f"{label} {name} stage {i} {tuple(xin.shape)} pad={pad}",
+                           kernel(xin, ops, bias_b, pad), want, rtol)
+        ms = cuda_ms(lambda: kernel(xin, ops, bias_b, pad))
         plain_ms = cuda_ms(lambda: cb.enc_stage_plain(xin, ops, bias_b, pad))
-        dev = device_ms(lambda: cb.enc_stage(xin, ops, bias_b, pad))
-        gms = graph_ms(lambda: cb.enc_stage(xin, ops, bias_b, pad))
+        dev = device_ms(lambda: kernel(xin, ops, bias_b, pad))
+        gms = graph_ms(lambda: kernel(xin, ops, bias_b, pad))
         f, nb = enc_stage_work(xin, ops, pad)
-        b = bound(f, nb)
+        b = bound(f, nb, peak)
         print(f"    {ms:.4f} ms (device {fmt(dev)}, graph {gms:.4f}), plain {plain_ms:.4f} "
               f"ms; bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}), {f / ms / 1e9:.1f} TFLOP/s",
@@ -457,9 +533,9 @@ def check_encoder(name, packed, x, temb):
         flops, nbytes = flops + f, nbytes + nb
         x = want  # both versions see the same input at the next stage
     row = {"ms": ms_sum, "plain_ms": plain_sum, "device_ms": dev_sum, "graph_ms": graph_sum,
-           **bound(flops, nbytes),
-           # the 3xTF32 split does three TF32 products for each f32 one
-           "bound_3xtf32_ms": 3 * flops / PEAK_TF32 * 1e3}
+           **bound(flops, nbytes, peak)}
+    if not bf16:  # the 3xTF32 split does three TF32 products for each f32 one
+        row["bound_3xtf32_ms"] = 3 * flops / PEAK_TF32 * 1e3
     return worst, row
 
 
@@ -493,51 +569,88 @@ def check_edge_shapes(device, nets):
                     for out_len in (100, t_frames * 160 - 50, (t_frames + 2) * 160 + 37):
                         expect_istft_close(f"K2 istft ({rows} rows a block) random spectrum",
                                            raw, out_len)
-    packed = cb.pack_encoder(nets[1].core.en)
     # every stage at 1-3 frames, batch 1 and 3, and frame counts that are
-    # not a multiple of any stage's time tile
-    for b, t_frames in [(1, 1), (3, 2), (1, 3), (3, 37), (1, 150)]:
-        temb = nets[1].time_embedding(torch.rand(b, generator=g, device=device) * 40.0)
-        x = torch.randn(b, t_frames, 161, 2, generator=g, device=device)
-        for i, (ops, tp) in enumerate(packed, start=1):
-            xin, bias_b, pad = cb.stage_inputs(x, ops, tp, temb)
-            x = cb.enc_stage_plain(xin, ops, bias_b, pad)
-            expect_close(f"K3 stage {i} {tuple(xin.shape)} pad={pad}",
-                         cb.enc_stage(xin, ops, bias_b, pad), x)
+    # not a multiple of any stage's time tile; K3 and K3-bf16
+    for dtype, kernel, label, rtol in (
+            (torch.float32, cb.enc_stage, "K3", KERNEL_RTOL),
+            (torch.bfloat16, cb.enc_stage_bf16, "K3-bf16", KERNEL_BF16_RTOL)):
+        packed = cb.pack_encoder(nets[1].core.en, dtype)
+        for b, t_frames in [(1, 1), (3, 2), (1, 3), (3, 37), (1, 150)]:
+            temb = nets[1].time_embedding(
+                torch.rand(b, generator=g, device=device) * 40.0).to(dtype)
+            x = torch.randn(b, t_frames, 161, 2, generator=g, device=device).to(dtype)
+            for i, (ops, tp) in enumerate(packed, start=1):
+                xin, bias_b, pad = cb.stage_inputs(x, ops, tp, temb)
+                x = cb.enc_stage_plain(xin, ops, bias_b, pad)
+                expect_close(f"{label} stage {i} {tuple(xin.shape)} pad={pad}",
+                             kernel(xin, ops, bias_b, pad), x, rtol)
 
 
-def run_main_path(device, nets, card):
-    """Phase 3; returns the launch counts of one plain-mode batch."""
+def rel_rms(got, want) -> float:
+    """Relative RMS difference, after checking shapes and finiteness."""
+    import torch
+
+    max_err(got, want)
+    got, want = got.double(), want.double()
+    return float(torch.sqrt(torch.mean((got - want) ** 2) / torch.mean(want ** 2)))
+
+
+def run_main_path(device, nets, card, dtype):
+    """Phase 3 in ``dtype``; returns the launch counts of one plain-mode batch."""
     import torch
 
     from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
 
+    bf16 = dtype == torch.bfloat16
+    label = "bf16" if bf16 else "f32"
+    want_counts = ({"stft": 1, "istft": 1, "enc_stage": 0, "enc_stage_bf16": 35} if bf16
+                   else {"stft": 1, "istft": 1, "enc_stage": 35, "enc_stage_bf16": 0})
     wav = speechlike(BATCH, LENGTH, 3)
     counts = None
     for sigma in (False, True):
-        enh = Enhancer(*nets, device=device, sigma=sigma)
-        fns = counters()
-        for fn in fns.values():
-            fn.launches = 0
+        mode = "sigma" if sigma else "plain"
+        enh = Enhancer(*nets, device=device, sigma=sigma, dtype=dtype)
+        reset_counts()
         out = enh.enhance_batch(wav, torch.Generator(device=device).manual_seed(4))
         torch.cuda.synchronize()
-        got_counts = {k: fn.launches for k, fn in fns.items()}
-        if got_counts != {"stft": 1, "istft": 1, "enc_stage": 35}:
-            fail(f"launch counts of one batch: {got_counts}")
+        got_counts = read_counts()
+        print(f"launches in one {label} batch [{mode}]: {got_counts}", flush=True)
+        if got_counts != want_counts:
+            fail(f"launch counts of one {label} batch: {got_counts}, expected {want_counts}")
         if counts is None:
             counts = got_counts
         with plain_versions():
             ref = enh.enhance_batch(wav, torch.Generator(device=device).manual_seed(4))
         torch.cuda.synchronize()
-        if {k: fn.launches for k, fn in fns.items()} != got_counts:
+        if read_counts() != got_counts:
             fail("the plain reference run launched a kernel")
-        err, refmax = max_err(out, ref)
-        mode = "sigma" if sigma else "plain"
-        print(f"enhance_batch [{mode}] {tuple(out.shape)}: max|kernels - plain| "
-              f"{err:.3e} (bound {PATH_RTOL * refmax:.3e}, max|ref| {refmax:.3e})",
-              flush=True)
-        if out.shape != (BATCH, LENGTH) or err > PATH_RTOL * refmax:
-            fail(f"enhance_batch [{mode}] disagrees with its plain-version run")
+        if out.shape != (BATCH, LENGTH) or out.dtype != torch.float32:
+            fail(f"enhance_batch [{label}, {mode}] returned {tuple(out.shape)} {out.dtype}")
+        if bf16:
+            err = rel_rms(out, ref)
+            print(f"enhance_batch [bf16, {mode}] {tuple(out.shape)}: kernels vs plain "
+                  f"versions rel RMS {err:.3e} (bound {BF16_PATH_RMS:g})", flush=True)
+            if err > BF16_PATH_RMS:
+                fail(f"enhance_batch [bf16, {mode}] disagrees with its plain-version run")
+            # bf16 against f32 on the same weights and the same initial draw
+            x_T = torch.randn((1, BATCH, T_FRAMES, 161, 2), device=device,
+                              generator=torch.Generator(device=device).manual_seed(7))
+            vs = rel_rms(enh.enhance_batch(wav, x_T=x_T),
+                         Enhancer(*nets, device=device, sigma=sigma).enhance_batch(wav, x_T=x_T))
+            lo, hi = BF16_VS_F32_RMS
+            print(f"enhance_batch [bf16, {mode}] vs f32 on the same weights and x_T: rel RMS "
+                  f"{vs:.3e} (bounds {lo:g} .. {hi:g})", flush=True)
+            if vs > hi:
+                fail(f"enhance_batch [bf16, {mode}] strays from the f32 batch")
+            if vs < lo:
+                fail(f"enhance_batch [bf16, {mode}] is the f32 batch: it did not run in bf16")
+        else:
+            err, refmax = max_err(out, ref)
+            print(f"enhance_batch [{mode}] {tuple(out.shape)}: max|kernels - plain| "
+                  f"{err:.3e} (bound {PATH_RTOL * refmax:.3e}, max|ref| {refmax:.3e})",
+                  flush=True)
+            if err > PATH_RTOL * refmax:
+                fail(f"enhance_batch [{mode}] disagrees with its plain-version run")
 
         gen = torch.Generator(device=device).manual_seed(5)
         wav_dev = torch.from_numpy(wav).to(device)
@@ -545,7 +658,7 @@ def run_main_path(device, nets, card):
         with plain_versions():
             plain_ms = cuda_ms(lambda: enh.enhance_batch(wav_dev, gen), iters=5, warmup=1)
         rtf = BATCH * LENGTH / SR / (ms / 1e3)
-        print(f"enhance_batch [{mode}] batch {BATCH} x {LENGTH // SR} s, fast-6, f32: "
+        print(f"enhance_batch [{mode}] batch {BATCH} x {LENGTH // SR} s, fast-6, {label}: "
               f"{ms:.3f} ms/batch, RTF {rtf:.1f}x (plain versions {plain_ms:.3f} ms); "
               f"card {card}", flush=True)
         if not sigma:
@@ -554,35 +667,68 @@ def run_main_path(device, nets, card):
 
 
 def layer_times(enh, wav, card):
-    """Per-layer device times of one batch: STFT, prior, one chain step, ISTFT."""
+    """Per-layer times of one batch in the enhancer's dtype: STFT, prior, one
+    chain step, the chain (its steps), ISTFT, the whole batch; device ms
+    from the profiler; and the kernels that take the most device time."""
     import torch
 
+    from prior_diffuse_tpu_torch.models.fused_forward import fused_unet_forward
     from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
     from prior_diffuse_tpu_torch.signal.compress import compress_spec
 
     c = enh.cfg.diffusion.scale_c
+    steps = enh.sched.num_steps
     with torch.no_grad():
         feat = compress_spec(kstft.stft(wav), "sqrt")
-        pack_dis, pack_ddpm = enh.packed_encoders()
-        x_init = enh.dis(feat, packed=pack_dis) / c
-        t = torch.full((BATCH,), float(enh.sched.T[-1]), device=wav.device)
+        pack_dis, pack_ddpm = enh.packs()
+        x_init = fused_unet_forward(pack_dis, feat) / c
+        t = torch.full((BATCH,), float(enh.sched.T[-1]), device=wav.device, dtype=enh.dtype)
         x = torch.randn_like(x_init)
         spec = feat.contiguous()
-        times = {
-            "stft": cuda_ms(lambda: kstft.stft(wav)),
-            "prior": cuda_ms(lambda: enh.dis(feat, packed=pack_dis), iters=10),
-            "ddpm_step": cuda_ms(lambda: enh.ddpm(x, x_init, t, packed=pack_ddpm), iters=10),
-            "istft": cuda_ms(lambda: kstft.istft(spec, LENGTH)),
-        }
-        device = {"prior": device_ms(lambda: enh.dis(feat, packed=pack_dis)),
-                  "ddpm_step": device_ms(lambda: enh.ddpm(x, x_init, t, packed=pack_ddpm))}
-    print(f"layers (ms per batch of {BATCH} x {LENGTH // SR} s): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in times.items()) + "; device ms (profiler) " + ", ".join(
-        f"{k} {fmt(v)}" for k, v in device.items()) + f"; card {card}", flush=True)
+        prior = lambda: fused_unet_forward(pack_dis, feat)
+        step = lambda: fused_unet_forward(pack_ddpm, x, x_init, t)
+        gen = torch.Generator(device=wav.device).manual_seed(8)
+        batch = lambda: enh.enhance_batch(wav, gen)
+        times = {"stft": cuda_ms(lambda: kstft.stft(wav)), "prior": cuda_ms(prior, iters=10),
+                 "ddpm_step": cuda_ms(step, iters=10),
+                 "istft": cuda_ms(lambda: kstft.istft(spec, LENGTH))}
+        times["chain"] = steps * times["ddpm_step"]
+        device = {"stft": device_ms(lambda: kstft.stft(wav)), "prior": device_ms(prior),
+                  "ddpm_step": device_ms(step),
+                  "istft": device_ms(lambda: kstft.istft(spec, LENGTH)),
+                  "batch": device_ms(batch, calls=3)}
+        device["chain"] = None if device["ddpm_step"] is None else steps * device["ddpm_step"]
+    label = "bf16" if enh.dtype == torch.bfloat16 else "f32"
+    print(f"layers [{label}] (ms per batch of {BATCH} x {LENGTH // SR} s, CUDA events): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + "; device ms (profiler) "
+          + ", ".join(f"{k} {fmt(v)}" for k, v in device.items()) + f"; card {card}",
+          flush=True)
+    top, launches = top_kernels(batch)
+    print(f"top kernels [{label}] by device ms per batch ({launches} kernel launches a "
+          f"batch): " + "; ".join(f"{name} {ms:.3f} ({n})" for name, ms, n in top), flush=True)
 
 
-def serve_requests(device, nets):
-    """Phase 4: five requests of 1-4 s through enhance_files."""
+def top_kernels(fn, n: int = 8, calls: int = 2) -> tuple:
+    """``([(kernel name, device ms per call, launches per call)], all
+    kernel launches per call)``: the ``n`` kernels with the most device
+    time in ``fn``, from the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key[:60], e.device_time_total / calls / 1e3, e.count // calls)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sorted(rows, key=lambda r: -r[1])[:n], sum(r[2] for r in rows)
+
+
+def serve_requests(device, nets, dtype):
+    """Phase 4: five requests of 1-4 s through enhance_files in ``dtype``."""
     import torch
 
     from prior_diffuse_tpu_torch.config import ExperimentConfig, TrainConfig
@@ -590,7 +736,7 @@ def serve_requests(device, nets):
     from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
 
     enh = Enhancer(*nets, ExperimentConfig(train=TrainConfig(batch_size=BATCH)),
-                   device=device)
+                   device=device, dtype=dtype)
     lengths = [16000, 23456, 40000, 64000, 31234]
     wavs = [0.1 * speechlike(1, n, 10 + i)[0] for i, n in enumerate(lengths)]
     t0 = time.perf_counter()
@@ -599,8 +745,65 @@ def serve_requests(device, nets):
     for w, o in zip(wavs, outs):
         if o.shape != w.shape or not np.isfinite(o).all():
             fail(f"enhance_files returned {o.shape} for {w.shape} or non-finite values")
-    print(f"enhance_files: {len(wavs)} requests, {sum(lengths) / SR:.2f} s of audio, "
-          f"lengths {lengths} -> ok ({wall * 1e3:.1f} ms wall incl. host)", flush=True)
+    print(f"enhance_files [{str(dtype)[6:]}]: {len(wavs)} requests, {sum(lengths) / SR:.2f} s "
+          f"of audio, lengths {lengths} -> ok ({wall * 1e3:.1f} ms wall incl. host)", flush=True)
+
+
+LONG_SECONDS = 30
+
+
+def serve_long(device, nets, card) -> dict:
+    """Phase 4b: one 30 s wav through ``enhance_long`` with the bf16
+    enhancer (11 segments of 3 s, 2 blocks) and through its bf16
+    ``prior_only_server`` (the prior's module forward on a bf16 copy, as
+    the JAX package's: no K3): shapes, finiteness, a seam-free join, the
+    wall time of a first and a second call; returns the launch counts of
+    each first call."""
+    import torch
+
+    from prior_diffuse_tpu_torch.config import ExperimentConfig, TrainConfig
+    from prior_diffuse_tpu_torch.serving.enhance import prior_only_server
+    from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
+    from prior_diffuse_tpu_torch.serving.streaming import enhance_long
+
+    enh = Enhancer(*nets, ExperimentConfig(train=TrainConfig(batch_size=BATCH)),
+                   device=device, dtype=torch.bfloat16)
+    wav = 0.1 * speechlike(1, LONG_SECONDS * SR, 20)[0]
+    segment, overlap = LENGTH, LENGTH // 10
+    hop = segment - overlap
+    blocks = -(-len(range(0, len(wav) - overlap, hop)) // BATCH)
+    counts = {}
+    for name, server in (("enhance_long_bf16", enh),
+                         ("prior_only_long_bf16", prior_only_server(enh))):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = enhance_long(server, wav, torch.Generator(device=device).manual_seed(9),
+                           segment=segment, overlap=overlap)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k3 = 35 * blocks if server is enh else 0  # the prior-only server: the module forward
+        counts[name] = expect_counts(name, {"stft": blocks, "istft": blocks,
+                                            "enc_stage_bf16": k3})
+        if out.shape != wav.shape or not np.isfinite(out).all():
+            fail(f"{name} returned {out.shape} for {wav.shape} or non-finite values")
+        jumps = np.abs(np.diff(out))
+        seam = np.zeros(len(jumps), bool)
+        for st in range(hop, len(wav) - 1, hop):
+            seam[max(st - overlap, 0): st + 1] = True
+        ratio = float(jumps[seam].max() / jumps[~seam].max())
+        print(f"{name}: {LONG_SECONDS} s in {blocks} blocks of {BATCH} x {segment}, "
+              f"{wall * 1e3:.1f} ms wall incl. host; largest step inside the crossfades / "
+              f"outside: {ratio:.3f} (bound 4); card {card}", flush=True)
+        if ratio > 4.0:
+            fail(f"{name}: the crossfade joins jump")
+        # the first call also casts the prior and picks cuDNN's plans
+        t0 = time.perf_counter()
+        enhance_long(server, wav, torch.Generator(device=device).manual_seed(9),
+                     segment=segment, overlap=overlap)
+        torch.cuda.synchronize()
+        print(f"{name}: again, {(time.perf_counter() - t0) * 1e3:.1f} ms wall incl. host",
+              flush=True)
+    return counts
 
 
 def reset_counts() -> None:
@@ -613,7 +816,9 @@ def read_counts() -> dict:
 
 
 def expect_counts(what: str, want: dict) -> dict:
+    """Fail unless the launch counts are ``want`` (a kernel it leaves out: 0)."""
     got = read_counts()
+    want = {k: want.get(k, 0) for k in got}
     print(f"launches in {what}: {got}", flush=True)
     if got != want:
         fail(f"launch counts in {what}: {got}, expected {want}")
@@ -770,6 +975,7 @@ def eval_and_kernels(tr, card) -> tuple:
     counts of one cv batch and the kernel rows."""
     import torch
 
+    from prior_diffuse_tpu_torch.models.fused_forward import fused_unet_forward
     from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
     from prior_diffuse_tpu_torch.signal.compress import decompress_spec
     from prior_diffuse_tpu_torch.training.base import spec_features
@@ -811,15 +1017,15 @@ def eval_and_kernels(tr, card) -> tuple:
                      "plain_ms": cuda_ms(lambda: kstft.istft_plain(spec, length=length))}
     tr.dis.eval()
     tr.ddpm.eval()
-    pack_dis, pack_ddpm = tr.enhancer.packed_encoders()
-    x_init = tr.dis(feat, packed=pack_dis) / tr.c
+    pack_dis, pack_ddpm = tr.enhancer.packs()
+    x_init = fused_unet_forward(pack_dis, feat) / tr.c
     g = torch.Generator(device=feat.device).manual_seed(9)
     x_t = torch.randn(x_init.shape, generator=g, device=feat.device)
     t = torch.full((feat.shape[0],), float(tr.enhancer.sched.T[0]), device=feat.device)
     x_ddpm = tr.ddpm.preprocess(torch.cat([x_t, x_init], dim=-1).permute(0, 3, 1, 2))
-    e_dis, _ = check_encoder("DiffUNet (trained)", pack_dis, feat, None)
+    e_dis, _ = check_encoder("DiffUNet (trained)", pack_dis["enc"], feat, None)
     e_ddpm, k3 = check_encoder(
-        "DiffUNet1 (trained)", pack_ddpm, x_ddpm.permute(0, 2, 3, 1).contiguous(),
+        "DiffUNet1 (trained)", pack_ddpm["enc"], x_ddpm.permute(0, 2, 3, 1).contiguous(),
         tr.ddpm.time_embedding(t))
     rows["enc_stage"] = {"shape": list(feat.shape), "max_abs_err": max(e_dis, e_ddpm), **k3}
     return {"stft": 2, "istft": 2, "enc_stage": 35}, rows
@@ -986,30 +1192,41 @@ def main() -> None:
     nets = seeded_nets(0, device)
     rows = check_kernels(device, nets)
     check_edge_shapes(device, nets)
-    paths = {"serve_batch": run_main_path(device, nets, card)}
-    serve_requests(device, nets)
+    paths = {"serve_batch": run_main_path(device, nets, card, torch.float32),
+             "serve_batch_bf16": run_main_path(device, nets, card, torch.bfloat16)}
+    serve_requests(device, nets, torch.float32)
+    serve_requests(device, nets, torch.bfloat16)
+    paths.update(serve_long(device, nets, card))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         corpus = write_train_corpus(root)
         paths["train_step"], paths["evaluate_cv_batch"], train_rows = train_phase(
             device, card, root, corpus)
         paths["cli_train"], paths["cli_generate"] = cli_phase(root, corpus, card)
 
+    # (route, source, replaces, the path whose run "launches" counts)
     meta = {
         "stft": ("cuda", "prior_diffuse_tpu_torch/csrc/stft.cu",
-                 "prior_diffuse_tpu/ops/pallas/stft_kernel.py:44"),
+                 "prior_diffuse_tpu/ops/pallas/stft_kernel.py:44", "cli"),
         "istft": ("cuda", "prior_diffuse_tpu_torch/csrc/stft.cu",
-                  "prior_diffuse_tpu/ops/pallas/stft_kernel.py:106"),
+                  "prior_diffuse_tpu/ops/pallas/stft_kernel.py:106", "cli"),
         "enc_stage": ("cuda", "prior_diffuse_tpu_torch/csrc/enc_chain.cu",
-                      "prior_diffuse_tpu/ops/pallas/convblock_kernel.py:109"),
+                      "prior_diffuse_tpu/ops/pallas/convblock_kernel.py:109", "cli"),
+        "enc_stage_bf16": ("cuda", "prior_diffuse_tpu_torch/csrc/enc_chain_bf16.cu",
+                           "prior_diffuse_tpu/ops/pallas/convblock_kernel.py:109 (dtype=bf16)",
+                           "serve_batch_bf16"),
     }
-    # launches: the entry point's run (cli.main: 2 epochs, then --generate);
-    # rows: the serving shapes (batch 8 x 3 s), then the training slice's
+    # launches: the entry point's run (cli.main: 2 epochs, then --generate)
+    # for the f32 slices' kernels, one bf16 serving batch for K3-bf16; rows:
+    # the serving shapes (batch 8 x 3 s), then (f32) the training slice's
+    count = lambda path, name: sum(paths[p].get(name, 0) for p in
+                                   (("cli_train", "cli_generate") if path == "cli" else (path,)))
+    batch = lambda name: "serve_batch_bf16" if name == "enc_stage_bf16" else "serve_batch"
     kernels = [{"name": name, "route": route, "source": src, "replaces": rep,
-                "launches": paths["cli_train"][name] + paths["cli_generate"][name],
-                "launches_per_batch": paths["serve_batch"][name],
-                "launches_by_path": {p: c[name] for p, c in paths.items()},
-                **rows[name], "train_slice": train_rows[name]}
-               for name, (route, src, rep) in meta.items()]
+                "launches": count(path, name), "launches_path": path,
+                "launches_per_batch": paths[batch(name)][name],
+                "launches_by_path": {p: c.get(name, 0) for p, c in paths.items()},
+                **rows[name], **({"train_slice": train_rows[name]} if name in train_rows else {})}
+               for name, (route, src, rep, path) in meta.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

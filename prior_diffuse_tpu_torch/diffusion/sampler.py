@@ -2,7 +2,9 @@
 
 The counterpart of ``prior_diffuse_tpu/diffusion/sampler.py::reverse_sample``.
 Random draws are explicit tensors (``x_T``, ``noise``), so a caller or a
-test can hand the same numbers to both packages.
+test can hand the same numbers to both packages.  The chain runs in
+``x_init``'s dtype (float32 or bfloat16), as the JAX sampler runs in its
+``dtype``.
 """
 
 from __future__ import annotations
@@ -19,9 +21,13 @@ from prior_diffuse_tpu_torch.diffusion.schedule import InferenceSchedule
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def _f32(values) -> list:
-    """Host constants rounded to float32 once, as python floats."""
-    return [float(v) for v in np.asarray(values, np.float64).astype(np.float32)]
+def rounded(values, dtype: torch.dtype = torch.float32) -> list:
+    """Host constants rounded to ``dtype``, as python floats: to float32
+    once, then (bfloat16) to the nearest bfloat16, as ``jnp.asarray(v,
+    dtype)`` rounds a host array.  A python float multiplies a tensor at
+    the tensor's compute precision, so it must hold the rounded value."""
+    f32 = torch.from_numpy(np.asarray(values, np.float64).astype(np.float32))
+    return f32.to(dtype).tolist()
 
 
 def is_noiseless(sched: InferenceSchedule) -> bool:
@@ -53,7 +59,13 @@ def reverse_sample(
       is not noiseless (:func:`is_noiseless`).
     * ``predict="x0"``: the net predicts the clean-side residual, turned
       into eps with ``(x - sqrt(ab) * out) / sqrt(1 - ab)``; the constants
-      are derived in float64 and rounded once.
+      are derived in float64 and rounded once (in bfloat16, ``1 - ab``
+      taken after the cast is 0 for ``ab`` > ~0.996).
+
+    The chain's dtype is ``x_init``'s: ``x``, the schedule constants and
+    the ``t`` fed to ``model_fn`` are in it (in bfloat16 the fractional
+    fast-schedule ``T`` rounds, to a spacing of 0.25 between 32 and 64), and
+    so are ``x_T``, ``noise`` and ``sig_mask`` and its square root.
     """
     if predict not in ("eps", "x0"):
         raise ValueError(f"unknown predict parameterization {predict!r}")
@@ -61,10 +73,15 @@ def reverse_sample(
     noiseless = is_noiseless(sched)
     if not noiseless and noise is None:
         raise ValueError("this schedule adds step noise: pass `noise`")
-    c1, c2, t_steps = _f32(sched.c1), _f32(sched.c2), _f32(sched.T)
-    new_sigma = _f32(sched.new_sigma)
+    dt = x_init.dtype
+    c1, c2, t_steps = rounded(sched.c1, dt), rounded(sched.c2, dt), rounded(sched.T, dt)
+    new_sigma = rounded(sched.new_sigma, dt)
     ab = np.asarray(sched.alpha_cum, np.float64)
-    sqrt_ab, rsqrt_1mab = _f32(np.sqrt(ab)), _f32(1.0 / np.sqrt(1.0 - ab))
+    sqrt_ab, rsqrt_1mab = rounded(np.sqrt(ab), dt), rounded(1.0 / np.sqrt(1.0 - ab), dt)
+    for name, arr in (("x_T", None if zero_init else x_T), ("sig_mask", sig_mask),
+                      ("noise", noise)):
+        if arr is not None and arr.dtype != dt:
+            raise ValueError(f"{name} is {arr.dtype}, the chain runs in {dt}")
     scale = None if sig_mask is None else torch.sqrt(sig_mask)
     batch = x_init.shape[0]
 
@@ -74,8 +91,7 @@ def reverse_sample(
         if scale is not None and not zero_init:
             x = x * scale
         for step, n in enumerate(range(n_steps - 1, -1, -1)):
-            t_vec = torch.full((batch,), t_steps[n], dtype=x_init.dtype,
-                               device=x_init.device)
+            t_vec = torch.full((batch,), t_steps[n], dtype=dt, device=x_init.device)
             out = model_fn(x, t_vec)
             if predict == "x0":
                 eps = (x - sqrt_ab[n] * out) * rsqrt_1mab[n]

@@ -6,11 +6,8 @@ The counterparts of ``prior_diffuse_tpu/models/diffunet.py`` (``DiffUNet``,
 ``core.en.conv1.l.weight`` (``convert.py``).  Public forwards take and
 return channels-last ``[B, T, 161, 2]``; inside, tensors are NCHW.
 
-The encoder has two forms of the same math: the conv-by-conv modules,
-which train, and the packed matmul-chain stages of
-``ops/cuda/convblock.py`` (K3 on CUDA tensors, inference only), taken
-when a forward is given ``packed`` operands
-(``convblock.pack_encoder(model.core.en)``).
+These forwards run conv by conv and train.  The serving forward, with
+the encoder's stages on K3, is ``models/fused_forward.py``.
 """
 
 from __future__ import annotations
@@ -19,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from prior_diffuse_tpu_torch.models import layers as tl
-from prior_diffuse_tpu_torch.ops.cuda.convblock import ENC_KERNELS, encoder_fused
+from prior_diffuse_tpu_torch.ops.cuda.convblock import ENC_KERNELS
 
 FREQ = 161
 _ENC_CIN = (2, 64, 64, 64, 64)
@@ -121,16 +118,8 @@ class Encoder(nn.Module):
             setattr(self, f"bn{i}", tl.BatchNorm2d(64))
             setattr(self, f"prelu{i}", nn.PReLU())
 
-    def forward(self, x, temb=None, packed=None):
-        """``x [B, C, T, F]`` -> ``(x, skips)``, NCHW.  With ``packed``
-        (``convblock.pack_encoder``) the stages run fused (``encoder_fused``)."""
-        if packed is not None:
-            if self.training:
-                raise ValueError("packed encoder stages fold the running BN "
-                                 "statistics: inference only")
-            x, skips = encoder_fused(x.permute(0, 2, 3, 1).contiguous(),
-                                     packed, temb)
-            return x.permute(0, 3, 1, 2), [s.permute(0, 3, 1, 2) for s in skips]
+    def forward(self, x, temb=None):
+        """``x [B, C, T, F]`` -> ``(x, skips)``, NCHW."""
         skips = []
         for i in range(1, 6):
             x = tl.pad_time_causal(x, 1)
@@ -176,21 +165,31 @@ class UNetCore(nn.Module):
         self.de_real = Decoder(time_cond)
         self.de_imag = Decoder(time_cond)
 
-    def forward(self, x, temb=None, packed=None):
+    def forward(self, x, temb=None):
         """``x [B, C, T, 161]`` -> ``[B, 2, T, 161]``."""
         if x.shape[-1] != FREQ:
             # the transposed convs rebuild 161 bins with no output padding
             # (4 -> 9 -> 19 -> 39 -> 79 -> 161); other widths do not invert
             raise ValueError(f"DiffUNet needs {FREQ} frequency bins, got {x.shape[-1]}")
-        x, skips = self.en(x, temb, packed)
-        b, c, t, f = x.shape  # c = 64, f = 4
-        # reference flatten order is c-major: [B, C, T, F] -> [B, C*F, T]
+        x, skips = self.en(x, temb)
+        x = self.bottleneck(x, (self.tcm1, self.tcm2, self.tcm3))
+        return self.decode(x, skips, temb, (self.de_real, self.de_imag))
+
+    @staticmethod
+    def bottleneck(x, tcms):
+        """The TCMs over the encoder's output ``x [B, 64, T, 4]`` (NCHW),
+        flattened c-major as the reference does: ``[B, C*F, T]``."""
+        b, c, t, f = x.shape
         flat = x.permute(0, 1, 3, 2).reshape(b, c * f, t)
-        flat = self.tcm3(self.tcm2(self.tcm1(flat)))
-        x = flat.reshape(b, c, f, t).permute(0, 1, 3, 2)
-        real = self.de_real(x, skips, temb)
-        imag = self.de_imag(x, skips, temb)
-        return torch.cat([real, imag], dim=1)
+        for tcm in tcms:
+            flat = tcm(flat)
+        return flat.reshape(b, c, f, t).permute(0, 1, 3, 2)
+
+    @staticmethod
+    def decode(x, skips, temb, decoders):
+        """The real and imaginary ``Decoder`` branches side by side:
+        ``[B, 2, T, 161]``."""
+        return torch.cat([d(x, skips, temb) for d in decoders], dim=1)
 
 
 class DiffUNet(nn.Module):
@@ -200,8 +199,8 @@ class DiffUNet(nn.Module):
         super().__init__()
         self.core = UNetCore(time_cond=False)
 
-    def forward(self, x, packed=None):
-        return self.core(x.permute(0, 3, 1, 2), None, packed).permute(0, 2, 3, 1)
+    def forward(self, x):
+        return self.core(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 class DiffUNet1(nn.Module):
@@ -216,7 +215,7 @@ class DiffUNet1(nn.Module):
         self.time_embedding = tl.TimeEmbedding(num_steps)
         self.core = UNetCore(time_cond=True)
 
-    def forward(self, x, x_init, t, packed=None):
+    def forward(self, x, x_init, t):
         x = self.preprocess(torch.cat([x, x_init], dim=-1).permute(0, 3, 1, 2))
         temb = self.time_embedding(t)
-        return self.core(x, temb, packed).permute(0, 2, 3, 1)
+        return self.core(x, temb).permute(0, 2, 3, 1)

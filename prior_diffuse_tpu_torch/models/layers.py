@@ -44,11 +44,14 @@ class TimeEmbedding(nn.Module):
         self.proj2 = nn.Linear(512, 512)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        """``t [B]`` float (fractional allowed) or integer -> ``[B, 512]``."""
+        """``t [B]`` float (fractional allowed) or integer -> ``[B, 512]``
+        float32.  A bfloat16 ``t`` (the bf16 chain's) is taken as it is, as
+        flax takes it: ``floor``/``ceil`` of the bf16 value, ``frac = t -
+        low`` in bf16 (exact), the table and both projections in f32."""
         if t.is_floating_point():
             low = torch.floor(t).long()
             high = torch.ceil(t).long()
-            frac = (t - low.to(t.dtype))[:, None]
+            frac = (t - low.to(t.dtype)).float()[:, None]
             x = self.table[low] + (self.table[high] - self.table[low]) * frac
         else:
             x = self.table[t]
@@ -63,12 +66,18 @@ class _FlaxBatchStats:
     BatchNorm stores the unbiased one).  The running statistics move by
     ``0.1`` of the batch statistics; ``num_batches_tracked`` counts the
     updates, which also marks the module as changed for whoever caches
-    operands folded from it (``Enhancer.packed_encoders``).  Eval mode is
-    torch's (running statistics)."""
+    operands folded from it (``Enhancer.packs``).  Eval mode is
+    torch's (running statistics); with the statistics cast to another
+    dtype (a cast copy of the net, as the JAX package casts its variables)
+    it is flax's inference arithmetic, op by op in that dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
+            if self.running_var.dtype == torch.float32:
+                return super().forward(x)
+            shape = (1, -1) + (1,) * (x.ndim - 2)
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return (x - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         self._check_input_dim(x)
         dims = [0, *range(2, x.ndim)]
         mean = x.mean(dims)

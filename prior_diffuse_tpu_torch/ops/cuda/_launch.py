@@ -20,12 +20,12 @@ def on_cuda(x: torch.Tensor) -> bool:
 
 
 def check_operand(name: str, t: torch.Tensor, device: torch.device,
-                  shape=None) -> None:
-    """The kernels take contiguous float32 tensors on the launch device."""
+                  shape=None, dtype: torch.dtype = torch.float32) -> None:
+    """The kernels take contiguous tensors of ``dtype`` on the launch device."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):

@@ -1,7 +1,8 @@
 """Whole-file enhancement: host normalisation and length bucketing.
 
 The counterpart of ``prior_diffuse_tpu/serving/enhance.py``
-(``enhance_files``, ``enhance_waveform``, ``enhance_directory``).  Files
+(``enhance_files``, ``enhance_waveform``, ``enhance_directory``,
+``prior_only_server``).  Files
 are length-sorted into batches of ``batch_size`` rows; a batch is padded
 to a rung of a
 geometric (x1.5) ladder of ``bucket_samples`` multiples and its row count
@@ -12,6 +13,7 @@ its length and de-normalised.
 
 from __future__ import annotations
 
+import copy
 import glob
 import logging
 import os
@@ -22,7 +24,11 @@ import numpy as np
 import torch
 
 from prior_diffuse_tpu_torch.data.wavio import read_wav, write_wav
+from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
+from prior_diffuse_tpu_torch.serving.enhancer import weights_key
+from prior_diffuse_tpu_torch.signal.compress import decompress_spec
 from prior_diffuse_tpu_torch.signal.normalize import rms_scale
+from prior_diffuse_tpu_torch.training.base import spec_features
 
 
 def _ladder_pad(longest: int, bucket_samples: int) -> int:
@@ -46,6 +52,57 @@ def _buckets(lengths: Sequence[int], batch_size: int, bucket_samples: int):
         idx = order[i: i + batch_size]
         yield (idx, _ladder_rows(len(idx), batch_size),
                _ladder_pad(max(lengths[j] for j in idx), bucket_samples))
+
+
+class _PriorOnly:
+    """:func:`prior_only_server`'s server."""
+
+    def __init__(self, enhancer, dtype: torch.dtype):
+        self.enhancer = enhancer
+        self.dtype = dtype
+        self.cfg = enhancer.cfg
+        self._net, self._key = None, None
+
+    def net(self):
+        """The enhancer's ``DiffUNet`` in the server's dtype: the module
+        itself in float32, else an inference copy with every parameter and
+        BN statistic cast, made again when a weight changed."""
+        dis = self.enhancer.dis.eval()
+        if self.dtype == torch.float32:
+            return dis
+        key = weights_key(dis)
+        if key != self._key:
+            self._net, self._key = copy.deepcopy(dis).to(self.dtype), key
+        return self._net
+
+    @torch.no_grad()
+    def prior(self, feat: torch.Tensor) -> torch.Tensor:
+        """Compressed spectrum ``feat [B, T, 161, 2]`` -> the prior's
+        estimate, in the server's dtype."""
+        return self.net()(feat.to(self.dtype))
+
+    @torch.no_grad()
+    def enhance_batch(self, wav, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``wav [B, L]`` -> ``[B, L]``: STFT (K1), the prior in the
+        server's dtype, decompress, ISTFT (K2).  Draws nothing: the
+        generator is taken and not used."""
+        wav = torch.as_tensor(wav, dtype=torch.float32).to(self.enhancer.device).contiguous()
+        x_init = self.prior(spec_features(wav, self.cfg.train))
+        spec = decompress_spec(x_init.float(), self.cfg.train.feat_type)
+        return kstft.istft(spec.contiguous(), wav.shape[-1])
+
+
+def prior_only_server(enhancer, dtype: Optional[torch.dtype] = None) -> _PriorOnly:
+    """A server that runs only the ``DiffUNet`` prior of ``enhancer`` (its
+    ``x_init``, no residual DDPM) through the same wav -> STFT -> ISTFT ->
+    wav path, with the prior in ``dtype`` (default the enhancer's).  As
+    the JAX package's, the prior is the module's own forward on the
+    parameters and BN statistics cast to ``dtype``.  It has
+    ``enhance_batch`` and ``cfg``, so :func:`enhance_files` and
+    ``streaming.enhance_long`` take it where they take an ``Enhancer``.
+    Chain-vs-prior comparisons on identical weights isolate the residual
+    DDPM's contribution."""
+    return _PriorOnly(enhancer, dtype or enhancer.dtype)
 
 
 def enhance_files(enhancer, wavs: List[np.ndarray], generator: torch.Generator,

@@ -2,19 +2,26 @@
 
 ``Enhancer.enhance_batch`` runs the steps of the JAX package's
 ``ComplexDDPMTrainer.enhance_batch`` (``training/ddpm_trainer.py``) in the
-same order, in float32, without a trainer:
+same order, without a trainer, with the model compute in ``dtype``
+(``serve_dtype``: float32, or bfloat16, the JAX package's fast path):
 
-1. STFT 320/160 (K1) and magnitude compression;
+1. STFT 320/160 (K1, float32) and magnitude compression, then cast;
 2. one ``DiffUNet`` forward gives ``x_init``, divided by ``c``;
 3. with ``sigma``, the PriorGrad mask of ``x_init``;
-4. the reverse chain of ``DiffUNet1`` forwards (6 on the fast schedule),
-   ``x_init`` added back;
-5. multiply by ``c``, decompress, ISTFT (K2) to the input length.
+4. the reverse chain of ``DiffUNet1`` forwards (6 on the fast schedule)
+   in ``dtype``, ``x_init`` added back;
+5. back to float32, multiply by ``c``, decompress, ISTFT (K2, float32) to
+   the input length.
 
-Every encoder stage of the 7 forwards is K3, on operands packed from the
-current weights (repacked whenever a parameter or BN statistic changes).
-Steps 2-4 are :meth:`Enhancer.chain`, which the trainer's evaluation
-runs on its spectra too.
+The forwards are ``models/fused_forward.py::fused_unet_forward``: every
+encoder stage of the 7 forwards is K3 (``enc_stage`` in float32,
+``enc_stage_bf16`` in bfloat16), and the decoders are the two ``Decoder``
+modules in float32 and the block-diagonal dual chain in bfloat16, the
+routes ``_resolve_fused`` picks for an empty environment.  Operands are
+packed from the current weights and repacked whenever a parameter or BN
+statistic changes.  Steps 2-4 are
+:meth:`Enhancer.chain`, which the trainer's evaluation runs on its
+spectra too.
 """
 
 from __future__ import annotations
@@ -25,20 +32,30 @@ import torch
 
 from prior_diffuse_tpu_torch.config import ExperimentConfig
 from prior_diffuse_tpu_torch.diffusion.qsample import sigma_mask
-from prior_diffuse_tpu_torch.diffusion.sampler import is_noiseless, reverse_sample
+from prior_diffuse_tpu_torch.diffusion.sampler import is_noiseless, reverse_sample, rounded
 from prior_diffuse_tpu_torch.diffusion.schedule import inference_schedule
+from prior_diffuse_tpu_torch.models.fused_forward import fused_unet_forward, pack_unet
 from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
-from prior_diffuse_tpu_torch.ops.cuda.convblock import pack_encoder
 from prior_diffuse_tpu_torch.signal.compress import decompress_spec
 from prior_diffuse_tpu_torch.training.base import spec_features
 
 
+def weights_key(*modules) -> tuple:
+    """A key that changes whenever a parameter or buffer of ``modules``
+    is replaced or updated in place (an in-place update bumps the tensor's
+    version counter): caches of operands derived from them compare it."""
+    return tuple((t.data_ptr(), t._version)
+                 for m in modules for t in [*m.parameters(), *m.buffers()])
+
+
 class Enhancer:
     """Serve a ``DiffUNet`` prior and a ``DiffUNet1`` residual DDPM
-    (pirorgrad mode) on ``device``; ``sigma`` turns on the PriorGrad mask."""
+    (pirorgrad mode) on ``device`` in ``dtype``; ``sigma`` turns on the
+    PriorGrad mask.  ``device`` is the card unless the caller asks for
+    ``"cpu"``; without a card that default raises."""
 
     def __init__(self, dis, ddpm, cfg: ExperimentConfig = ExperimentConfig(),
-                 device="cuda", sigma: bool = False):
+                 device="cuda", sigma: bool = False, dtype: torch.dtype = torch.float32):
         diff, train = cfg.diffusion, cfg.train
         if not diff.pirorgrad:
             raise ValueError("the port serves the pirorgrad mode only")
@@ -46,6 +63,12 @@ class Enhancer:
             raise ValueError(f"unknown predict {diff.predict!r}")
         if (train.fft_num, train.win_size, train.win_shift) != (320, 320, 160):
             raise ValueError("the STFT kernels implement the 320/160 framing only")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"the enhancer serves float32 or bfloat16, not {dtype}")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the enhancer runs on the card unless "
+                               "device='cpu' is passed")
         # f32 means f32: cuDNN runs float32 convolutions in TF32 (about
         # three significant digits) by default, while the JAX reference
         # computes its convolutions in f32 and its DFT at HIGHEST precision.
@@ -53,34 +76,35 @@ class Enhancer:
         torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
         self.sigma = sigma
-        self.device = torch.device(device)
+        self.dtype = dtype
         self.dis = dis.to(self.device).eval()
         self.ddpm = ddpm.to(self.device).eval()
         self.sched = inference_schedule(diff)
         self._pack_key = None
         self._packs = None
 
-    def packed_encoders(self):
-        """K3 operands of both encoders, repacked when a weight changed
-        (an in-place update bumps the tensor's version counter)."""
-        key = tuple((t.data_ptr(), t._version)
-                    for m in (self.dis, self.ddpm)
-                    for t in [*m.core.en.parameters(), *m.core.en.buffers()])
+    def packs(self):
+        """``(prior, denoiser)`` operands of :func:`fused_unet_forward` in
+        the enhancer's dtype, repacked when a weight changed
+        (:func:`weights_key`).  The decoders are dual in every dtype but
+        float32."""
+        key = weights_key(self.dis, self.ddpm)
         if key != self._pack_key:
-            with torch.no_grad():
-                self._packs = (pack_encoder(self.dis.core.en),
-                               pack_encoder(self.ddpm.core.en))
+            self._packs = tuple(pack_unet(m, self.dtype, self.dtype != torch.float32)
+                                for m in (self.dis, self.ddpm))
             self._pack_key = key
         return self._packs
 
     @torch.no_grad()
     def enhance_batch(self, wav, generator: Optional[torch.Generator] = None,
                       x_T: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``wav [B, L]`` (RMS-normalised, padded) -> enhanced ``[B, L]``.
+        """``wav [B, L]`` (RMS-normalised, padded) -> enhanced ``[B, L]``
+        float32.
 
         The chain's initial draws ``x_T [n_avg, B, T, 161, 2]`` (and step
         noise, for a schedule that has any) come from ``generator``, a
-        ``torch.Generator`` on this device, unless ``x_T`` is given."""
+        ``torch.Generator`` on this device, in the enhancer's dtype, unless
+        ``x_T`` is given (it is cast to that dtype)."""
         wav = torch.as_tensor(wav, dtype=torch.float32).to(self.device).contiguous()
         est, _ = self.chain(spec_features(wav, self.cfg.train), generator, x_T)
         spec = decompress_spec(est, self.cfg.train.feat_type)
@@ -89,19 +113,21 @@ class Enhancer:
     @torch.no_grad()
     def chain(self, feat: torch.Tensor, generator: Optional[torch.Generator] = None,
               x_T: Optional[torch.Tensor] = None):
-        """Compressed noisy spectrum ``feat [B, T, 161, 2]`` -> ``(estimate,
-        x_init)``: the prior, the sigma mask and the reverse chain, with the
-        estimate scaled back by ``c`` (the compressed clean spectrum) and
-        ``x_init`` the prior's output divided by ``c``."""
+        """Compressed noisy spectrum ``feat [B, T, 161, 2]`` (float32) ->
+        ``(estimate, x_init)``: the prior, the sigma mask and the reverse
+        chain in the enhancer's dtype, the estimate back in float32 and
+        scaled by ``c`` (the compressed clean spectrum), ``x_init`` the
+        prior's output divided by ``c``, in the enhancer's dtype."""
         diff = self.cfg.diffusion
-        c = diff.scale_c
+        dt = self.dtype
+        c = rounded([diff.scale_c], dt)[0]
         self.dis.eval()
         self.ddpm.eval()
-        pack_dis, pack_ddpm = self.packed_encoders()
-        x_init = self.dis(feat, packed=pack_dis) / c
+        pack_dis, pack_ddpm = self.packs()
+        feat = feat.to(dt)
+        x_init = fused_unet_forward(pack_dis, feat) / c
         sig = sigma_mask(x_init) if self.sigma else None
-        cond = (torch.cat([x_init, feat / c], dim=-1) if diff.cond_noisy
-                else x_init)
+        cond = torch.cat([x_init, feat / c], dim=-1) if diff.cond_noisy else x_init
 
         shape = tuple(x_init.shape)
         noise = None
@@ -109,14 +135,16 @@ class Enhancer:
             noise = self._draw((diff.n_avg, self.sched.num_steps, *shape), generator)
         if x_T is None and not diff.zero_init:
             x_T = self._draw((diff.n_avg, *shape), generator)
+        elif x_T is not None:
+            x_T = x_T.to(device=self.device, dtype=dt)
 
         audio = reverse_sample(
-            lambda x, t: self.ddpm(x, cond, t, packed=pack_ddpm),
+            lambda x, t: fused_unet_forward(pack_ddpm, x, cond, t),
             x_init, x_T, self.sched, sig_mask=sig, noise=noise,
             zero_init=diff.zero_init, predict=diff.predict)
-        return audio * c, x_init
+        return audio.float() * c, x_init
 
     def _draw(self, shape, generator):
         if generator is None:
             raise ValueError("pass a torch.Generator: the chain draws random numbers")
-        return torch.randn(shape, generator=generator, device=self.device)
+        return torch.randn(shape, generator=generator, device=self.device, dtype=self.dtype)

@@ -97,11 +97,10 @@ def test_fused_encoder_matches_module_form(encoders):
     _, x, temb, _, _, enc = encoders
     t = None if temb is None else torch.from_numpy(temb)
     with torch.no_grad():
-        xt = torch.from_numpy(x).permute(0, 3, 1, 2)
-        _, want = enc(xt, t)
-        _, got = enc(xt, t, packed=cb.pack_encoder(enc))
+        _, want = enc(torch.from_numpy(x).permute(0, 3, 1, 2), t)
+        _, got = cb.encoder_fused(torch.from_numpy(x), cb.pack_encoder(enc), t)
     for a, b in zip(got, want):
-        _close_rel(a.numpy(), b.numpy(), 1e-5)
+        _close_rel(a.numpy(), b.permute(0, 2, 3, 1).numpy(), 1e-5)
 
 
 def test_stage_matches_pallas_interpret():
@@ -279,3 +278,192 @@ def test_wrapper_takes_plain_path_on_cpu(encoders):
         want = cb.enc_stage_plain(xt, ops, bias_b, 1)
     assert torch.equal(got, want)
     assert cb.enc_stage.launches == before
+
+
+# ----------------------------------------------------------------- K3 in bf16
+# csrc/enc_chain_bf16.cu at the level of each lane's registers: the
+# m16n8k16 fragment layouts of PTX (lane = 4g + t), the weights in
+# stage_frag's order, the A operand loaded as k pairs from the staged tile,
+# and the f32 accumulators packed in pairs into the next product's A.
+
+_G4 = torch.arange(32) >> 2
+_T4 = torch.arange(32) & 3
+
+
+def _bf(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _a_matrix(r: torch.Tensor) -> torch.Tensor:
+    """A [16, 16] from each lane's four registers of two values ``r [32, 4,
+    2]``: rows g, g + 8 at k 2t, 2t + 1, then at k 2t + 8, 2t + 9."""
+    a = torch.zeros(16, 16)
+    for i, (dr, dk) in enumerate([(0, 0), (8, 0), (0, 8), (8, 8)]):
+        for h in range(2):
+            a[_G4 + dr, 2 * _T4 + dk + h] = r[:, i, h]
+    return a
+
+
+def _b_matrix(f: torch.Tensor) -> torch.Tensor:
+    """B [16, 8] from each lane's fragment ``f [32, 4]``: k 2t, 2t + 1,
+    2t + 8, 2t + 9 of column g."""
+    b = torch.zeros(16, 8)
+    for i, dk in enumerate((0, 1, 8, 9)):
+        b[2 * _T4 + dk, _G4] = f[:, i]
+    return b
+
+
+def _c_regs(d: torch.Tensor) -> torch.Tensor:
+    """A [16, 8] accumulator as each lane's c0..c3 (rows g, g + 8; cols 2t, 2t + 1)."""
+    return torch.stack([d[_G4, 2 * _T4], d[_G4, 2 * _T4 + 1],
+                        d[_G4 + 8, 2 * _T4], d[_G4 + 8, 2 * _T4 + 1]], dim=1)
+
+
+def _acc_to_a(c0: torch.Tensor, c1: torch.Tensor) -> torch.Tensor:
+    """acc_to_a: n-tiles j, j + 1 (lane registers) -> A registers, in bf16."""
+    return _bf(torch.stack([c0[:, 0:2], c0[:, 2:4], c1[:, 0:2], c1[:, 2:4]], dim=1))
+
+
+def _stage_frag(w: torch.Tensor, krows: int, ks: int, nj: int) -> torch.Tensor:
+    """stage_frag: ``[ks * nj * 32, 4]`` fragments of ``w`` (row stride 64)."""
+    e = torch.arange(ks * nj * 32)
+    lane, sj = e & 31, e >> 5
+    k = 16 * (sj // nj) + 2 * (lane & 3)
+    c = 8 * (sj % nj) + (lane >> 2)
+    at = lambda kk: torch.where(kk < krows, w[kk.clamp(max=krows - 1), c], 0.0)
+    return torch.stack([at(k), at(k + 1), at(k + 8), at(k + 9)], dim=1)
+
+
+def _mma(d: torch.Tensor, a_regs: torch.Tensor, frag: torch.Tensor) -> torch.Tensor:
+    """d (lane registers) += A B on one tile, f32 sums of bf16 products."""
+    return d + _c_regs(_a_matrix(a_regs) @ _b_matrix(frag))
+
+
+def _k3_bf16_emulate(x, ops, bias_b, pad, n_sm=132):
+    """K3-bf16 warp by warp from its tile plan: the tile staged as ``[tt +
+    1, F, CS]`` bf16 (zeros outside the input), each warp's 16 rows read
+    as k pairs through the row and pair offsets, the three products on the
+    lanes' fragments.  Returns the output and each row's write count."""
+    b, tin, f, c = x.shape
+    kf = ops["kernel_f"]
+    t, fo = tin - 1 + pad, (f - kf) // 2 + 1
+    plan = cb.tile_plan(b, t, f, c, kf, n_sm, 2)
+    assert plan.smem == cb.smem_bytes(c, kf, f, plan.tt, 2) <= cb.SMEM_MAX
+    assert plan.tt * fo <= cb.TILE_ROWS
+    cs = cb.channel_stride(c, 2)
+    k_dim = 2 * kf * c
+    ks = -(-k_dim // 16)
+    koff = torch.zeros(8 * ks, dtype=torch.long)
+    for q in range(k_dim // 2):
+        kt, r = divmod(2 * q, kf * c)
+        koff[q] = (kt * f + r // c) * cs + r % c
+    w = lambda name: ops[name].float()
+    wf = _stage_frag(w("wmain"), k_dim, ks, 8)
+    glf = _stage_frag(w("wg"), 32, 2, 4)
+    grf = _stage_frag(w("wg")[32:, 32:], 32, 2, 4)
+    w2f = _stage_frag(w("w2"), 32, 2, 8)
+    frag = lambda fr, s, nj, j: fr[(s * nj + j) * 32:(s * nj + j + 1) * 32]
+    # init_acc: lane registers c0..c3 of n-tile j hold v[8j + 2t], v[8j + 2t + 1] twice
+    init = lambda v, n: [torch.stack([v[8 * j + 2 * _T4], v[8 * j + 2 * _T4 + 1]] * 2, dim=1)
+                         for j in range(n)]
+    per_utt = -(-t // plan.tt)
+    out = torch.full((b, t * fo, 64), float("nan"))
+    writes = torch.zeros(b, t * fo, dtype=torch.long)
+    for tile in range(plan.tiles):
+        bi, t0 = tile // per_utt, (tile % per_utt) * plan.tt
+        buf = torch.zeros(plan.tt + 1, f, cs)
+        for j in range(plan.tt + 1):
+            if 0 <= t0 - pad + j < tin:
+                buf[j, :, :c] = x[bi, t0 - pad + j].float()
+        buf = buf.reshape(-1)
+        rows = min(plan.tt, t - t0) * fo
+        for warp in range(cb.WARPS):
+            if warp * 16 >= rows:
+                continue
+            r = warp * 16 + torch.stack([_G4, _G4 + 8])  # [2, 32]: rows g, g + 8
+            r = torch.where(r < rows, r, 0)
+            off = ((r // fo) * f + 2 * (r % fo)) * cs
+            y = init(bias_b[bi], 8)
+            for s in range(ks):
+                k0, k1 = koff[8 * s + _T4], koff[8 * s + 4 + _T4]
+                pairs = [off[h] + kk for kk in (k0, k1) for h in (0, 1)]
+                a = torch.stack([torch.stack([buf[p], buf[p + 1]], dim=1) for p in pairs], dim=1)
+                y = [_mma(y[j], a, frag(wf, s, 8, j)) for j in range(8)]
+            ml, mr = init(ops["bg"], 4), init(ops["bg"][32:], 4)
+            for s in range(2):
+                a = _acc_to_a(y[2 * s], y[2 * s + 1])
+                ml = [_mma(ml[j], a, frag(glf, s, 4, j)) for j in range(4)]
+                a = _acc_to_a(y[4 + 2 * s], y[5 + 2 * s])
+                mr = [_mma(mr[j], a, frag(grf, s, 4, j)) for j in range(4)]
+            comb = [y[j] * torch.sigmoid(mr[j]) + y[j + 4] * torch.sigmoid(ml[j])
+                    for j in range(4)]
+            o = init(ops["b2"], 8)
+            for s in range(2):
+                a = _acc_to_a(comb[2 * s], comb[2 * s + 1])
+                o = [_mma(o[j], a, frag(w2f, s, 8, j)) for j in range(8)]
+            for h in range(2):
+                row = warp * 16 + _G4 + 8 * h
+                keep = row < rows
+                for j in range(8):
+                    for e in range(2):
+                        v = o[j][:, 2 * h + e]
+                        v = _bf(torch.where(v >= 0, v, ops["alpha"] * v))
+                        out[bi, t0 * fo + row[keep], 8 * j + 2 * _T4[keep] + e] = v[keep]
+                writes[bi, t0 * fo + row[keep]] += 1
+    return out.reshape(b, t, fo, 64), writes
+
+
+@pytest.mark.parametrize("stage", range(5), ids=[f"stage{i + 1}" for i in range(5)])
+@pytest.mark.parametrize("t_frames", [3, 7])
+def test_k3_bf16_lanes_match_plain(stage, t_frames):
+    """K3-bf16's fragment layouts, offsets and tiling, emulated lane by
+    lane with several tiles and a partial last one (n_sm = 2), equal
+    ``enc_stage_plain`` in bf16 up to summation order (an occasional bf16
+    step of the output), and every output row is written once (8 writes
+    a row: one per n-tile pair of columns, counted once per lane row)."""
+    f, c, kf, pad = STAGES[stage]
+    ops, g = _stage_operands(c, kf, 20 + stage)
+    ops = {**ops, "wmain": ops["wmain"].bfloat16(), "wg": ops["wg"].bfloat16(),
+           "w2": ops["w2"].bfloat16()}
+    b = 2
+    x = torch.randn(b, t_frames + 1 - pad, f, c, generator=g).bfloat16()
+    bias_b = torch.randn(b, 64, generator=g)
+    want = cb.enc_stage_plain(x, ops, bias_b, pad)
+    got, writes = _k3_bf16_emulate(x, ops, bias_b, pad, n_sm=2)
+    assert bool((writes == 1).all())
+    _close_rel(got.numpy(), want.float().numpy(), 2.0 ** -7)
+
+
+def test_k3_bf16_lane_layouts_invert():
+    """The emulation's fragment maps are one-to-one: B from stage_frag is
+    W's k16 x n8 tile, and A registers packed from two accumulator tiles
+    are the accumulators' columns in natural k order."""
+    w = torch.randn(40, 64, generator=torch.Generator().manual_seed(0))
+    fr = _stage_frag(w, 40, 3, 8)
+    for s in range(3):
+        for j in range(8):
+            tile = torch.zeros(16, 8)
+            rows = w[16 * s:min(16 * s + 16, 40), 8 * j:8 * j + 8]
+            tile[:rows.shape[0]] = rows
+            assert torch.equal(_b_matrix(fr[(s * 8 + j) * 32:(s * 8 + j + 1) * 32]), tile)
+    d = _bf(torch.randn(16, 16, generator=torch.Generator().manual_seed(1)))
+    a = _acc_to_a(_c_regs(d[:, :8]), _c_regs(d[:, 8:]))
+    assert torch.equal(_a_matrix(a), d)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=[f"{b}x{t}" for b, t in PLAN_SHAPES])
+@pytest.mark.parametrize("stage", range(5), ids=[f"stage{i + 1}" for i in range(5)])
+def test_bf16_tile_plan_covers_rows_and_fits(shape, stage):
+    """K3-bf16's plan (``elem=2``): every row once, a tile within the
+    block's rows, shared memory within 227 KB, and its bytes are the bf16
+    layout's (8-byte fragments, k16 steps, the padded channel stride)."""
+    b, t = shape
+    f, c, kf, _ = STAGES[stage]
+    fo = (f - kf) // 2 + 1
+    plan = cb.tile_plan(b, t, f, c, kf, 132, 2)
+    k16 = -(-2 * kf * c // 16)
+    cs = 2 if c == 2 else 40
+    assert plan.smem == 256 * (8 * k16 + 32) + 32 * k16 + 2 * (plan.tt + 1) * f * cs
+    assert plan.smem <= cb.SMEM_MAX and 1 <= plan.tt * fo <= cb.TILE_ROWS
+    per_utt = -(-t // plan.tt)
+    assert plan.tiles == b * per_utt and plan.grid == min(plan.tiles, 132)

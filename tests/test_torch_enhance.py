@@ -39,14 +39,14 @@ def nets():
     return make_pair("DiffUNet", seed=3), make_pair("DiffUNet1", seed=4)
 
 
-@partial(jax.jit, static_argnames=("sigma", "cond_noisy"))
-def _jax_enhance(dis_vars, ddpm_vars, wav, rng, *, sigma, cond_noisy):
+@partial(jax.jit, static_argnames=("sigma", "cond_noisy", "zero_init"))
+def _jax_enhance(dis_vars, ddpm_vars, wav, rng, *, sigma, cond_noisy, zero_init=False):
     """``ComplexDDPMTrainer.enhance_batch``'s impl on explicit variables
     (f32, flax forwards, pirorgrad, the default diffusion config but
-    ``cond_noisy``)."""
+    ``cond_noisy`` and ``zero_init``)."""
     from prior_diffuse_tpu.models.diffunet import DiffUNet, DiffUNet1
 
-    cfg, diff = JTrainConfig(), JDiffusionConfig(cond_noisy=cond_noisy)
+    cfg, diff = JTrainConfig(), JDiffusionConfig(cond_noisy=cond_noisy, zero_init=zero_init)
     c = diff.scale_c
     feat = spec_features(wav, cfg)
     x_init = DiffUNet().apply(dis_vars, feat, train=False)

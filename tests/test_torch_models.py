@@ -2,8 +2,9 @@
 
 Flax variables (random init, randomised BN statistics) are converted with
 ``convert.py`` and the eval-mode forwards compared with flax ``apply`` on
-the same inputs, fractional ``t`` included, with the encoder both as
-conv-by-conv modules and as packed K3 stages (plain version on the CPU).
+the same inputs, fractional ``t`` included, as conv-by-conv modules and as
+the serving forward (``fused_forward.fused_unet_forward``: the encoder as
+packed K3 stages, plain version on the CPU).
 Bound: 1e-4 * max|ref| (about 40 float32 layers, sums in another order).
 """
 
@@ -19,7 +20,7 @@ from prior_diffuse_tpu.models.diffunet import DiffUNet1 as JDiffUNet1
 from prior_diffuse_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from prior_diffuse_tpu_torch.models import layers
 from prior_diffuse_tpu_torch.models.diffunet import DiffUNet, DiffUNet1
-from prior_diffuse_tpu_torch.ops.cuda.convblock import pack_encoder
+from prior_diffuse_tpu_torch.models.fused_forward import fused_unet_forward, pack_unet
 
 T_FRAMES = 11
 
@@ -91,18 +92,19 @@ def test_forward_matches_flax(pair, form):
     name, jm, variables, tm = pair
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, T_FRAMES, 161, 2)).astype(np.float32)
-    packed = pack_encoder(tm.core.en) if form == "packed" else None
+    forward = tm if form == "modules" else (
+        lambda *args: fused_unet_forward(pack_unet(tm), *args))
     with torch.no_grad():
         if name == "DiffUNet":
             want = jm.apply(variables, jnp.asarray(x), train=False)
-            got = tm(torch.from_numpy(x), packed=packed)
+            got = forward(torch.from_numpy(x))
         else:
             xi = rng.standard_normal(x.shape).astype(np.float32)
             t = np.asarray([3.7, 21.0], np.float32)
             want = jm.apply(variables, jnp.asarray(x), jnp.asarray(xi),
                             jnp.asarray(t), train=False)
-            got = tm(torch.from_numpy(x), torch.from_numpy(xi),
-                     torch.from_numpy(t), packed=packed)
+            got = forward(torch.from_numpy(x), torch.from_numpy(xi),
+                          torch.from_numpy(t))
     _close_rel(got.numpy(), want)
 
 

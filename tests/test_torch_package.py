@@ -1,7 +1,8 @@
 """Package rules of the PyTorch port.
 
 * Every module of ``prior_diffuse_tpu_torch`` imports with jax, flax, optax,
-  orbax, yaml and the JAX package blocked, the training slice's included,
+  orbax, yaml and the JAX package blocked, the training and bf16 serving
+  slices' included,
   and ``conf/diff.yml`` loads so: the machine with the GPU has none of
   them, and this test process imports jax (``conftest.py``), so an
   accidental import would pass every other test here.
@@ -51,14 +52,20 @@ TRAINING_SLICE = [
 ]
 
 
+# the modules of the bf16 serving slice
+BF16_SERVING_SLICE = ["models.fused_forward", "ops.cuda.convblock", "serving.enhancer",
+                      "serving.enhance", "serving.streaming", "diffusion.sampler"]
+
+
 def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,
                           env={**os.environ, "PYTHONPATH": ROOT})
     assert proc.returncode == 0, proc.stderr
     walked = set(proc.stdout.split())
-    assert len(walked) >= 42  # every module was walked
-    missing = [m for m in TRAINING_SLICE if f"prior_diffuse_tpu_torch.{m}" not in walked]
+    assert len(walked) >= 44  # every module was walked
+    missing = [m for m in TRAINING_SLICE + BF16_SERVING_SLICE
+               if f"prior_diffuse_tpu_torch.{m}" not in walked]
     assert not missing, missing
 
 
