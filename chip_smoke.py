@@ -54,7 +54,19 @@ Phases (each passes or ends the script with a non-zero exit):
    checkpoint restored into a fresh trainer takes the same next step;
 6. the entry point: ``cli.main`` trains 2 epochs on that corpus and writes
    its log and checkpoints, then ``--generate`` writes one wav per test
-   utterance.
+   utterance;
+7. the deltamu and conditional diffusion modes: the batch of phase 3 with
+   the unconditional ``Nocon`` (deltamu, plain and ``--sigma``) or
+   ``DiffUNet1`` conditioned on the noisy spectrum (conditional, plain),
+   in f32 and bf16, each through the kernels against the plain versions
+   (f32 ``PATH_RTOL``, bf16 ``BF16_PATH_RMS``), bf16 against f32 on the
+   same weights and ``x_T``, launch counts K1 = 1, K2 = 1, K3 or K3-bf16 =
+   35, with its CUDA-event ms, device ms and kernel launches; the bf16
+   enhancer on the card against the same enhancer on the CPU (the plain
+   versions, the CPU branch the tests hold to JAX) at 2 x 0.5 s in each
+   mode; and the trainer of phase 5 in each mode: the K1 step against the
+   plain-STFT step, 5 timed steps, one ``evaluate()`` cv batch (K1 = 2,
+   K2 = 2, K3 = 35).
 
 It prints a JSON line of per-kernel results before the last line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -120,6 +132,14 @@ STEP_UPDATE_RTOL = 1e-3
 STEADY_GRAD = 1e-6
 TRAIN_BATCH, CORPUS = 6, (24, 8)  # conf/diff.yml's batch; train, test utterances
 PARAMS = {"dis": 1_662_565, "ddpm": 2_780_273}  # published DiffUNet, DiffUNet1
+NOCON_PARAMS = 2_780_263  # the deltamu denoiser: DiffUNet1 without its preprocess
+MODES = {"deltamu": {"pirorgrad": False, "deltamu": True}, "conditional": {"pirorgrad": False}}
+# The bf16 enhancer on the card against the same enhancer on the CPU, on one
+# x_T (relative RMS): cuDNN's bf16 convolutions, cuBLAS's bf16 products with
+# an f32 output and the kernels against the CPU's bf16 convolutions and f32
+# products of bf16 operands, both rounding at the same points.
+BF16_CARD_VS_CPU_RMS = 2e-2
+CARD_VS_CPU_LENGTH = 8000
 
 
 def fail(msg: str) -> None:
@@ -323,8 +343,9 @@ def speechlike(n: int, length: int, seed: int) -> np.ndarray:
     return (x / np.sqrt(np.mean(x ** 2, axis=1, keepdims=True))).astype(np.float32)
 
 
-def seeded_nets(seed: int, device):
-    """Full-width DiffUNet and DiffUNet1 with weights drawn from an explicit
+def seeded_nets(seed: int, device, classes=None):
+    """Full-width nets (``DiffUNet`` and ``DiffUNet1`` unless ``classes``
+    names others) with weights drawn from an explicit
     generator: uniform(+-1/sqrt(fan_in)) kernels and biases, PReLU slopes
     in [0.1, 0.4], BN scale/shift near 1/0 and running statistics
     mean ~ N(0, 0.1), var ~ U(0.5, 1.5) (not the 0/1 defaults, so the
@@ -336,7 +357,7 @@ def seeded_nets(seed: int, device):
 
     g = torch.Generator().manual_seed(seed)
     nets = []
-    for net in (DiffUNet(), DiffUNet1()):
+    for net in (cls() for cls in (classes or (DiffUNet, DiffUNet1))):
         with torch.no_grad():
             for m in net.modules():
                 if isinstance(m, nn.modules.batchnorm._BatchNorm):
@@ -595,81 +616,89 @@ def rel_rms(got, want) -> float:
     return float(torch.sqrt(torch.mean((got - want) ** 2) / torch.mean(want ** 2)))
 
 
-def run_main_path(device, nets, card, dtype):
-    """Phase 3 in ``dtype``; returns the launch counts of one plain-mode batch."""
+def run_main_path(device, dis, ddpm, card, dtype, mode: str = "pirorgrad",
+                  sigmas=(False, True)) -> dict:
+    """Phase 3 (pirorgrad) or 7a (the other modes) in ``dtype``: a batch
+    for each of ``sigmas`` (``--sigma`` off, on) through the kernels,
+    against the same enhancer through the plain versions and (bf16)
+    against f32 on one ``x_T``, its launch counts, CUDA-event ms, device
+    ms and kernel launches; the layers and top kernels of the plain batch.
+    Returns the launch counts of each batch by path name."""
     import torch
 
     from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
 
     bf16 = dtype == torch.bfloat16
-    label = "bf16" if bf16 else "f32"
-    want_counts = ({"stft": 1, "istft": 1, "enc_stage": 0, "enc_stage_bf16": 35} if bf16
-                   else {"stft": 1, "istft": 1, "enc_stage": 35, "enc_stage_bf16": 0})
+    want = {"stft": 1, "istft": 1, "enc_stage_bf16" if bf16 else "enc_stage": 35}
     wav = speechlike(BATCH, LENGTH, 3)
-    counts = None
-    for sigma in (False, True):
-        mode = "sigma" if sigma else "plain"
-        enh = Enhancer(*nets, device=device, sigma=sigma, dtype=dtype)
+    wav_dev = torch.from_numpy(wav).to(device)
+    counts = {}
+    for sigma in sigmas:
+        label = f"{mode}, {'bf16' if bf16 else 'f32'}, {'sigma' if sigma else 'plain'}"
+        enh = Enhancer(dis, ddpm, mode_config(mode), device=device, sigma=sigma, dtype=dtype)
+        if enh.mode != mode:
+            fail(f"the enhancer serves {enh.mode}, not {mode}")
         reset_counts()
         out = enh.enhance_batch(wav, torch.Generator(device=device).manual_seed(4))
         torch.cuda.synchronize()
-        got_counts = read_counts()
-        print(f"launches in one {label} batch [{mode}]: {got_counts}", flush=True)
-        if got_counts != want_counts:
-            fail(f"launch counts of one {label} batch: {got_counts}, expected {want_counts}")
-        if counts is None:
-            counts = got_counts
+        path = ("serve_batch" + ("" if mode == "pirorgrad" else f"_{mode}")
+                + ("_bf16" if bf16 else "") + ("_sigma" if sigma else ""))
+        counts[path] = expect_counts(f"one batch [{label}]", want)
         with plain_versions():
             ref = enh.enhance_batch(wav, torch.Generator(device=device).manual_seed(4))
         torch.cuda.synchronize()
-        if read_counts() != got_counts:
+        if read_counts() != counts[path]:
             fail("the plain reference run launched a kernel")
         if out.shape != (BATCH, LENGTH) or out.dtype != torch.float32:
-            fail(f"enhance_batch [{label}, {mode}] returned {tuple(out.shape)} {out.dtype}")
+            fail(f"enhance_batch [{label}] returned {tuple(out.shape)} {out.dtype}")
         if bf16:
             err = rel_rms(out, ref)
-            print(f"enhance_batch [bf16, {mode}] {tuple(out.shape)}: kernels vs plain "
-                  f"versions rel RMS {err:.3e} (bound {BF16_PATH_RMS:g})", flush=True)
+            print(f"enhance_batch [{label}] {tuple(out.shape)}: kernels vs plain versions rel "
+                  f"RMS {err:.3e} (bound {BF16_PATH_RMS:g})", flush=True)
             if err > BF16_PATH_RMS:
-                fail(f"enhance_batch [bf16, {mode}] disagrees with its plain-version run")
+                fail(f"enhance_batch [{label}] disagrees with its plain-version run")
             # bf16 against f32 on the same weights and the same initial draw
             x_T = torch.randn((1, BATCH, T_FRAMES, 161, 2), device=device,
                               generator=torch.Generator(device=device).manual_seed(7))
-            vs = rel_rms(enh.enhance_batch(wav, x_T=x_T),
-                         Enhancer(*nets, device=device, sigma=sigma).enhance_batch(wav, x_T=x_T))
+            f32 = Enhancer(dis, ddpm, mode_config(mode), device=device, sigma=sigma)
+            vs = rel_rms(enh.enhance_batch(wav, x_T=x_T), f32.enhance_batch(wav, x_T=x_T))
             lo, hi = BF16_VS_F32_RMS
-            print(f"enhance_batch [bf16, {mode}] vs f32 on the same weights and x_T: rel RMS "
+            print(f"enhance_batch [{label}] vs f32 on the same weights and x_T: rel RMS "
                   f"{vs:.3e} (bounds {lo:g} .. {hi:g})", flush=True)
             if vs > hi:
-                fail(f"enhance_batch [bf16, {mode}] strays from the f32 batch")
+                fail(f"enhance_batch [{label}] strays from the f32 batch")
             if vs < lo:
-                fail(f"enhance_batch [bf16, {mode}] is the f32 batch: it did not run in bf16")
+                fail(f"enhance_batch [{label}] is the f32 batch: it did not run in bf16")
         else:
             err, refmax = max_err(out, ref)
-            print(f"enhance_batch [{mode}] {tuple(out.shape)}: max|kernels - plain| "
+            print(f"enhance_batch [{label}] {tuple(out.shape)}: max|kernels - plain| "
                   f"{err:.3e} (bound {PATH_RTOL * refmax:.3e}, max|ref| {refmax:.3e})",
                   flush=True)
             if err > PATH_RTOL * refmax:
-                fail(f"enhance_batch [{mode}] disagrees with its plain-version run")
+                fail(f"enhance_batch [{label}] disagrees with its plain-version run")
 
         gen = torch.Generator(device=device).manual_seed(5)
-        wav_dev = torch.from_numpy(wav).to(device)
-        ms = cuda_ms(lambda: enh.enhance_batch(wav_dev, gen), iters=10, warmup=2)
+        batch = lambda: enh.enhance_batch(wav_dev, gen)
+        ms = cuda_ms(batch, iters=10, warmup=2)
         with plain_versions():
-            plain_ms = cuda_ms(lambda: enh.enhance_batch(wav_dev, gen), iters=5, warmup=1)
-        rtf = BATCH * LENGTH / SR / (ms / 1e3)
-        print(f"enhance_batch [{mode}] batch {BATCH} x {LENGTH // SR} s, fast-6, {label}: "
-              f"{ms:.3f} ms/batch, RTF {rtf:.1f}x (plain versions {plain_ms:.3f} ms); "
+            plain_ms = cuda_ms(batch, iters=5, warmup=1)
+        dev = device_ms(batch, calls=3)
+        top, launches = top_kernels(batch)
+        print(f"enhance_batch [{label}] batch {BATCH} x {LENGTH // SR} s, fast-6: {ms:.3f} "
+              f"ms/batch, RTF {BATCH * LENGTH / SR / (ms / 1e3):.1f}x (plain versions "
+              f"{plain_ms:.3f} ms); device {fmt(dev)} ms, {launches} kernel launches a batch; "
               f"card {card}", flush=True)
         if not sigma:
-            layer_times(enh, wav_dev, card)
+            layer_times(enh, wav_dev, card, label)
+            print(f"top kernels [{label}] by device ms per batch: " + "; ".join(
+                f"{name} {kernel_ms:.3f} ({n})" for name, kernel_ms, n in top), flush=True)
     return counts
 
 
-def layer_times(enh, wav, card):
-    """Per-layer times of one batch in the enhancer's dtype: STFT, prior, one
-    chain step, the chain (its steps), ISTFT, the whole batch; device ms
-    from the profiler; and the kernels that take the most device time."""
+def layer_times(enh, wav, card, label: str):
+    """Per-layer times of one batch in the enhancer's dtype and mode: STFT,
+    prior, one chain step, the chain (its steps), ISTFT; device ms from the
+    profiler."""
     import torch
 
     from prior_diffuse_tpu_torch.models.fused_forward import fused_unet_forward
@@ -682,30 +711,24 @@ def layer_times(enh, wav, card):
         feat = compress_spec(kstft.stft(wav), "sqrt")
         pack_dis, pack_ddpm = enh.packs()
         x_init = fused_unet_forward(pack_dis, feat) / c
+        cond = enh.conditioner(feat, c, x_init)
         t = torch.full((BATCH,), float(enh.sched.T[-1]), device=wav.device, dtype=enh.dtype)
         x = torch.randn_like(x_init)
         spec = feat.contiguous()
         prior = lambda: fused_unet_forward(pack_dis, feat)
-        step = lambda: fused_unet_forward(pack_ddpm, x, x_init, t)
-        gen = torch.Generator(device=wav.device).manual_seed(8)
-        batch = lambda: enh.enhance_batch(wav, gen)
+        step = lambda: fused_unet_forward(pack_ddpm, x, cond, t)
         times = {"stft": cuda_ms(lambda: kstft.stft(wav)), "prior": cuda_ms(prior, iters=10),
                  "ddpm_step": cuda_ms(step, iters=10),
                  "istft": cuda_ms(lambda: kstft.istft(spec, LENGTH))}
         times["chain"] = steps * times["ddpm_step"]
         device = {"stft": device_ms(lambda: kstft.stft(wav)), "prior": device_ms(prior),
                   "ddpm_step": device_ms(step),
-                  "istft": device_ms(lambda: kstft.istft(spec, LENGTH)),
-                  "batch": device_ms(batch, calls=3)}
+                  "istft": device_ms(lambda: kstft.istft(spec, LENGTH))}
         device["chain"] = None if device["ddpm_step"] is None else steps * device["ddpm_step"]
-    label = "bf16" if enh.dtype == torch.bfloat16 else "f32"
     print(f"layers [{label}] (ms per batch of {BATCH} x {LENGTH // SR} s, CUDA events): "
           + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + "; device ms (profiler) "
           + ", ".join(f"{k} {fmt(v)}" for k, v in device.items()) + f"; card {card}",
           flush=True)
-    top, launches = top_kernels(batch)
-    print(f"top kernels [{label}] by device ms per batch ({launches} kernel launches a "
-          f"batch): " + "; ".join(f"{name} {ms:.3f} ({n})" for name, ms, n in top), flush=True)
 
 
 def top_kernels(fn, n: int = 8, calls: int = 2) -> tuple:
@@ -936,10 +959,10 @@ def step_through_k1_and_plain(tr, batch) -> None:
           flush=True)
 
 
-def timed_steps(tr, batches, card) -> dict:
-    """10 train steps timed with CUDA events after 2 warm-up steps, without
-    the group gradient norms (``train_ddpm`` takes them on 1 step in
-    ``grad_log_every``); returns the launch counts of one step."""
+def timed_steps(tr, batches, card, iters: int = 10, label: str = "joint, sigma") -> dict:
+    """``iters`` train steps timed with CUDA events after 2 warm-up steps,
+    without the group gradient norms (``train_ddpm`` takes them on 1 step
+    in ``grad_log_every``); returns the launch counts of one step."""
     import torch
 
     losses = []
@@ -950,7 +973,7 @@ def timed_steps(tr, batches, card) -> dict:
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(step, iters=10, warmup=2)
+    ms = cuda_ms(step, iters=iters, warmup=2)
     peak = torch.cuda.max_memory_allocated()
     n = len(losses)
     expect_counts(f"{n} train steps", {"stft": 2 * n, "istft": 0, "enc_stage": 0})
@@ -961,8 +984,8 @@ def timed_steps(tr, batches, card) -> dict:
         t0 = time.perf_counter()
         float(tr._train_step(*batches[i % len(batches)], norms=False)[0])
         wall.append((time.perf_counter() - t0) * 1e3)
-    print(f"train step [joint, sigma] batch {TRAIN_BATCH} x {LENGTH}, f32: {ms:.3f} ms/step "
-          f"(CUDA events, mean of 10), {TRAIN_BATCH / (ms / 1e3):.2f} utterances/s, "
+    print(f"train step [{label}] batch {TRAIN_BATCH} x {LENGTH}, f32: {ms:.3f} ms/step "
+          f"(CUDA events, mean of {iters}), {TRAIN_BATCH / (ms / 1e3):.2f} utterances/s, "
           f"peak memory {peak / 2**20:.1f} MiB; host clock {np.median(wall):.3f} ms/step "
           f"(median of 5, {min(wall):.3f}-{max(wall):.3f}); losses of the last step "
           f"{[round(float(v), 5) for v in losses[-1]]}; card {card}", flush=True)
@@ -1159,6 +1182,82 @@ def cli_phase(root: str, corpus: str, card) -> tuple:
     return train, generate
 
 
+def mode_config(mode: str):
+    """The default experiment in a diffusion mode (``pirorgrad`` or one of MODES)."""
+    from prior_diffuse_tpu_torch.config import DiffusionConfig, ExperimentConfig
+
+    return ExperimentConfig(diffusion=DiffusionConfig(**MODES.get(mode, {})))
+
+
+def bf16_card_vs_cpu(device, dis, denoisers) -> None:
+    """Phase 7b: the bf16 enhancer on the card (kernels, cuDNN and cuBLAS in
+    bf16) against the same enhancer on the CPU (the plain versions) on one
+    ``x_T``, at 2 x 0.5 s, in each mode."""
+    import torch
+
+    from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
+
+    wav = speechlike(2, CARD_VS_CPU_LENGTH, 30)
+    x_T = torch.randn((1, 2, CARD_VS_CPU_LENGTH // 160 + 1, 161, 2),
+                      generator=torch.Generator().manual_seed(31)).bfloat16()
+    for mode, ddpm in denoisers.items():
+        out = {}
+        for dev in (device, torch.device("cpu")):
+            nets = [copy.deepcopy(m).to(dev) for m in (dis, ddpm)]
+            enh = Enhancer(*nets, mode_config(mode), device=dev, dtype=torch.bfloat16)
+            out[dev.type] = enh.enhance_batch(wav, x_T=x_T).cpu()
+        err = rel_rms(out["cuda"], out["cpu"])
+        print(f"enhance_batch [{mode}, bf16] {tuple(out['cpu'].shape)} on the card vs on the "
+              f"CPU (plain versions), one x_T: rel RMS {err:.3e} "
+              f"(bound {BF16_CARD_VS_CPU_RMS:g})", flush=True)
+        if err > BF16_CARD_VS_CPU_RMS:
+            fail(f"the bf16 batch [{mode}] on the card strays from the CPU's")
+
+
+def train_mode_phase(device, card, root: str, corpus: str, mode: str) -> tuple:
+    """Phase 7c: phase 5's trainer (``conf/diff.yml``, ``--joint --sigma``)
+    in ``mode``: the K1 step against the plain-STFT step, 5 timed steps,
+    one ``evaluate()`` cv batch; returns the launch counts of one step and
+    of the evaluation."""
+    import torch
+
+    from prior_diffuse_tpu_torch.config import RunConfig, load_experiment
+    from prior_diffuse_tpu_torch.diffusion.sampler import diffusion_mode
+    from prior_diffuse_tpu_torch.training.ddpm_trainer import ComplexDDPMTrainer
+
+    exp = load_experiment(os.path.join(ROOT, "conf", "diff.yml"))
+    exp = dataclasses.replace(exp, diffusion=dataclasses.replace(exp.diffusion, **MODES[mode]))
+    if diffusion_mode(exp.diffusion) != mode:
+        fail(f"the config's mode is {diffusion_mode(exp.diffusion)}, not {mode}")
+    run = RunConfig(seed=7, joint=True, sigma=True, data_root=corpus,
+                    assets=os.path.join(root, f"assets_{mode}"))
+    tr = ComplexDDPMTrainer(run, exp, device=device)
+    n_params = {n: sum(p.numel() for p in m.parameters()) for n, m in tr.nets.items()}
+    want = {"dis": PARAMS["dis"], "ddpm": NOCON_PARAMS if mode == "deltamu" else PARAMS["ddpm"]}
+    print(f"trainer [{mode}]: DiffUNet {n_params['dis']:,} + {type(tr.ddpm).__name__} "
+          f"{n_params['ddpm']:,} parameters, joint, sigma", flush=True)
+    if n_params != want:
+        fail(f"parameter counts {n_params}, expected {want}")
+    batches = [tr.put_batch(b.noisy, b.clean, b.frame_nums) for b in tr.tr_loader]
+    step_through_k1_and_plain(tr, batches[0])
+    step_counts = timed_steps(tr, batches, card, iters=5, label=f"{mode}, joint, sigma")
+    n_cv = len(tr.cv_loader)
+    reset_counts()
+    t0 = time.perf_counter()
+    cv_loss = tr.evaluate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eval_counts = expect_counts(f"evaluate() [{mode}] over {n_cv} cv batch(es)",
+                                {"stft": 2 * n_cv, "istft": 2 * n_cv, "enc_stage": 35 * n_cv})
+    diag = [r for r in metric_records(tr.run.log_dir) if "test_prior_mse" in r][-1]
+    if not finite([cv_loss, *(v for k, v in diag.items() if k.startswith("test_"))]):
+        fail(f"non-finite evaluation [{mode}]: {diag}")
+    print(f"evaluate() [{mode}]: cv loss {cv_loss:.5f}, prior_mse {diag['test_prior_mse']:.5f}, "
+          f"{wall / n_cv * 1e3:.1f} ms wall per cv batch incl. host scoring; card {card}",
+          flush=True)
+    return step_counts, eval_counts
+
+
 def main() -> None:
     import torch
 
@@ -1189,11 +1288,15 @@ def main() -> None:
             print("  " + line.strip(), flush=True)
     build.library()
 
+    from prior_diffuse_tpu_torch.models.diffunet import Nocon
+
     nets = seeded_nets(0, device)
+    denoisers = {"deltamu": seeded_nets(1, device, (Nocon,))[0], "conditional": nets[1]}
     rows = check_kernels(device, nets)
     check_edge_shapes(device, nets)
-    paths = {"serve_batch": run_main_path(device, nets, card, torch.float32),
-             "serve_batch_bf16": run_main_path(device, nets, card, torch.bfloat16)}
+    paths = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        paths.update(run_main_path(device, *nets, card, dtype))
     serve_requests(device, nets, torch.float32)
     serve_requests(device, nets, torch.bfloat16)
     paths.update(serve_long(device, nets, card))
@@ -1202,6 +1305,14 @@ def main() -> None:
         paths["train_step"], paths["evaluate_cv_batch"], train_rows = train_phase(
             device, card, root, corpus)
         paths["cli_train"], paths["cli_generate"] = cli_phase(root, corpus, card)
+        for mode, ddpm in denoisers.items():  # phase 7
+            for dtype in (torch.float32, torch.bfloat16):
+                paths.update(run_main_path(device, nets[0], ddpm, card, dtype, mode,
+                                           (False, True) if mode == "deltamu" else (False,)))
+        bf16_card_vs_cpu(device, nets[0], {"pirorgrad": nets[1], **denoisers})
+        for mode in MODES:
+            paths[f"train_step_{mode}"], paths[f"evaluate_cv_batch_{mode}"] = \
+                train_mode_phase(device, card, root, corpus, mode)
 
     # (route, source, replaces, the path whose run "launches" counts)
     meta = {

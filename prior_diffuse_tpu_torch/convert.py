@@ -13,11 +13,16 @@ the same in both packages; the conventions that differ
 * PReLU ``alpha`` <-> ``weight``;
 * BatchNorm ``BatchNorm_0/{scale, bias}`` and batch stats ``{mean, var}``
   <-> ``weight, bias, running_mean, running_var`` (``num_batches_tracked``
-  has no flax counterpart and is set to 0).
+  has no flax counterpart and is set to 0, or to a given count).
+
+:func:`payload_from_jax` carries a whole JAX trainer checkpoint (both
+nets, both optax states, step and plateau state) into the port's
+checkpoint payload.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -60,8 +65,10 @@ def _kernel_to_flax(module: nn.Module, w: np.ndarray) -> np.ndarray:
     raise TypeError(f"no kernel convention for {type(module).__name__}")
 
 
-def flax_to_state_dict(model: nn.Module, variables) -> Dict[str, torch.Tensor]:
-    """The ``state_dict`` of ``model`` that holds the flax ``variables``."""
+def flax_to_state_dict(model: nn.Module, variables,
+                       batches_tracked: int = 0) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``model`` that holds the flax ``variables``;
+    every BatchNorm's ``num_batches_tracked`` is ``batches_tracked``."""
     out = {}
     for collection in ("params", "batch_stats"):
         for path, value in _flatten(variables.get(collection, {})):
@@ -80,7 +87,8 @@ def flax_to_state_dict(model: nn.Module, variables) -> Dict[str, torch.Tensor]:
             out[".".join(mod_path + [name])] = torch.from_numpy(
                 np.array(value, dtype=np.float32, order="C"))
             if isinstance(module, nn.modules.batchnorm._BatchNorm):
-                out[".".join(mod_path + ["num_batches_tracked"])] = torch.tensor(0)
+                out[".".join(mod_path + ["num_batches_tracked"])] = torch.tensor(
+                    batches_tracked)
     return out
 
 
@@ -119,3 +127,77 @@ def state_dict_to_flax(model: nn.Module, state_dict) -> dict:
             node = node.setdefault(p, {})
         node[path[-1]] = np.array(value, order="C")
     return tree
+
+
+def _adam_leaves(opt_state) -> Tuple[dict, dict]:
+    """``(hyperparams, scale_by_adam state)`` of the JAX package's
+    ``torch_adam`` state (``training/optim.py``: ``inject_hyperparams``
+    over ``add_decayed_weights``, ``scale_by_adam``, ``scale(-1)``,
+    ``scale_by_learning_rate``), as orbax restores it without a template:
+    the named tuples as dicts, the chain as a list, empty states as None."""
+    hyper = opt_state["hyperparams"]
+    adam = [s for s in opt_state["inner_state"]
+            if isinstance(s, dict) and set(s) == {"count", "mu", "nu"}]
+    if set(hyper) != {"lr", "l2"} or len(adam) != 1:
+        raise ValueError("not the optax state of the JAX package's torch_adam")
+    return hyper, adam[0]
+
+
+def adam_from_optax(model: nn.Module, opt_state, template: dict) -> dict:
+    """The ``torch.optim.Adam`` ``state_dict`` of ``model``'s optimizer from
+    the JAX ``torch_adam`` state ``opt_state``: ``mu`` / ``nu`` become
+    ``exp_avg`` / ``exp_avg_sq``, the Adam ``count`` every parameter's
+    ``step`` (no state before the first update, as torch keeps none), the
+    (possibly halved) ``hyperparams`` ``lr`` and ``l2`` the groups' ``lr``
+    and ``weight_decay``.  ``template`` is the ``state_dict`` of an Adam
+    over ``model.parameters()``, whose parameter indices follow
+    ``model.named_parameters()``."""
+    hyper, adam = _adam_leaves(opt_state)
+    count = int(np.asarray(adam["count"]))
+    out = {"state": {}, "param_groups": copy.deepcopy(template["param_groups"])}
+    for group in out["param_groups"]:
+        group["lr"] = float(np.float32(hyper["lr"]))
+        group["weight_decay"] = float(np.float32(hyper["l2"]))
+    if count == 0:
+        return out
+    moments = {key: flax_to_state_dict(model, {"params": adam[key]})
+               for key in ("mu", "nu")}
+    names = [name for name, _ in model.named_parameters()]
+    if sum(len(g["params"]) for g in out["param_groups"]) != len(names):
+        raise ValueError("the template is not an optimizer over the model's parameters")
+    for i, name in enumerate(names):
+        out["state"][i] = {"step": torch.tensor(float(count)),
+                           "exp_avg": moments["mu"][name],
+                           "exp_avg_sq": moments["nu"][name]}
+    return out
+
+
+def payload_from_jax(payload, nets: Dict[str, nn.Module], opts: Dict[str, torch.optim.Adam]
+                     ) -> dict:
+    """The port's checkpoint payload (``training/base.py::ckpt_payload``)
+    of a JAX trainer's (``prior_diffuse_tpu/training/base.py:212-253``), a
+    tree of numpy arrays in dicts and lists as orbax restores it without a
+    template.  ``nets`` (``dis``, ``ddpm``) and ``opts`` (``opt_dis``,
+    ``opt_ddpm``) are the port trainer's modules and optimizers, used for
+    their layouts only.  Each BatchNorm's ``num_batches_tracked`` is the
+    JAX step (one statistics update a step).  The JAX PRNG key has no torch
+    counterpart: the payload's ``generator`` is None, and the trainer that
+    restores it seeds its generator from its own seed."""
+    state, meta = payload["state"], payload["meta"]
+    step = int(np.asarray(meta["step"]))
+    out = {name: flax_to_state_dict(net, state[name], batches_tracked=step)
+           for name, net in nets.items()}
+    for name, net in nets.items():
+        if set(out[name]) != set(net.state_dict()):
+            raise ValueError(f"the JAX {name!r} tree does not fit {type(net).__name__}")
+        for key, value in net.state_dict().items():
+            if out[name][key].shape != value.shape:
+                raise ValueError(f"{name}.{key}: {tuple(out[name][key].shape)}, "
+                                 f"expected {tuple(value.shape)}")
+    for name, opt in opts.items():
+        out[name] = adam_from_optax(nets[name[len("opt_"):]], state[name], opt.state_dict())
+    return {"state": out, "meta": {
+        "step": step, "generator": None,
+        "plateau_prev": float(np.asarray(meta["plateau_prev"])),
+        "plateau_best": float(np.asarray(meta["plateau_best"])),
+        "plateau_bad": int(np.asarray(meta["plateau_bad"]))}}

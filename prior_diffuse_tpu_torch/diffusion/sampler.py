@@ -1,6 +1,7 @@
-"""Reverse DDPM sampling in pirorgrad mode, as a plain Python loop.
+"""Reverse DDPM sampling in the three diffusion modes, as a plain Python loop.
 
-The counterpart of ``prior_diffuse_tpu/diffusion/sampler.py::reverse_sample``.
+The counterpart of ``prior_diffuse_tpu/diffusion/sampler.py::reverse_sample``
+(and of the mode logic of ``training/ddpm_trainer.py::_mode``).
 Random draws are explicit tensors (``x_T``, ``noise``), so a caller or a
 test can hand the same numbers to both packages.  The chain runs in
 ``x_init``'s dtype (float32 or bfloat16), as the JAX sampler runs in its
@@ -19,6 +20,26 @@ from prior_diffuse_tpu_torch.diffusion.schedule import InferenceSchedule
 # model_fn(x_t [B, T, F, 2], t [B] float32) -> network output, with the
 # conditioning closed over
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+MODES = ("pirorgrad", "deltamu", "conditional")
+
+
+def diffusion_mode(diff) -> str:
+    """The mode of a ``DiffusionConfig``: ``pirorgrad`` wins over
+    ``deltamu``, and neither flag is ``conditional`` (JAX
+    ``ddpm_trainer.py:67-72``).  Raises ``ValueError`` for what the JAX
+    trainer refuses (``:86-99``): ``cond_noisy`` outside pirorgrad, an
+    unknown ``predict``, and ``predict="x0"`` in deltamu (its noise term
+    mixes in ``x_init``, so it has no clean x0 target)."""
+    mode = "pirorgrad" if diff.pirorgrad else "deltamu" if diff.deltamu else "conditional"
+    if diff.cond_noisy and mode != "pirorgrad":
+        raise ValueError("cond_noisy requires pirorgrad mode")
+    if diff.predict not in ("eps", "x0"):
+        raise ValueError(f"unknown predict {diff.predict!r}")
+    if diff.predict == "x0" and mode == "deltamu":
+        raise ValueError("predict='x0' is unsupported in deltamu mode")
+    return mode
 
 
 def rounded(values, dtype: torch.dtype = torch.float32) -> list:
@@ -45,13 +66,20 @@ def reverse_sample(
     noise: Optional[torch.Tensor] = None,
     zero_init: bool = False,
     predict: str = "eps",
+    mode: str = "pirorgrad",
 ) -> torch.Tensor:
-    """Run the reverse chain from ``x_T`` and add ``x_init`` at the end.
+    """Run the reverse chain from ``x_T``; in ``mode``:
+
+    * ``pirorgrad``: from ``x_T``, ``x_init`` added at the end;
+    * ``deltamu``: from ``x_T + x_init`` (from ``x_init`` with
+      ``zero_init``), nothing added at the end;
+    * ``conditional``: from ``x_T``, nothing added (the conditioning is
+      inside ``model_fn``).
 
     * ``x_T [n_avg, *x_init.shape]``: standard-normal initial draws, one
       per averaged chain; the result is the mean of the ``n_avg`` chains.
       Ignored (may be None) with ``zero_init``, which runs one chain from
-      zeros.
+      zeros (``x_init`` in deltamu).
     * ``sig_mask``: PriorGrad per-bin scale; the initial draw and every
       step noise are multiplied by ``sqrt(sig_mask)``.
     * ``noise [n_avg, N, *x_init.shape]``: per-step draws in loop order
@@ -69,6 +97,8 @@ def reverse_sample(
     """
     if predict not in ("eps", "x0"):
         raise ValueError(f"unknown predict parameterization {predict!r}")
+    if mode not in MODES:
+        raise ValueError(f"unknown diffusion mode {mode!r}")
     n_steps = sched.num_steps
     noiseless = is_noiseless(sched)
     if not noiseless and noise is None:
@@ -90,6 +120,8 @@ def reverse_sample(
     for i, x in enumerate(starts):
         if scale is not None and not zero_init:
             x = x * scale
+        if mode == "deltamu":
+            x = x + x_init
         for step, n in enumerate(range(n_steps - 1, -1, -1)):
             t_vec = torch.full((batch,), t_steps[n], dtype=dt, device=x_init.device)
             out = model_fn(x, t_vec)
@@ -101,7 +133,7 @@ def reverse_sample(
             if not noiseless and n > 0:  # step n = 0 adds no noise
                 z = noise[i, step]
                 x = x + new_sigma[n] * (z if scale is None else z * scale)
-        chains.append(x + x_init)
+        chains.append(x + x_init if mode == "pirorgrad" else x)
     if len(chains) == 1:
         return chains[0]
     return torch.stack(chains).mean(dim=0)

@@ -1,1 +1,1 @@
-"""Models of the serving path: the DiffUNet prior and the DiffUNet1 denoiser."""
+"""Models of the serving path: the DiffUNet prior and the DDPM denoisers (DiffUNet1, Nocon)."""

@@ -1,7 +1,7 @@
 """DiffUNet family: the discriminative prior and the residual DDPM denoiser.
 
 The counterparts of ``prior_diffuse_tpu/models/diffunet.py`` (``DiffUNet``,
-``DiffUNet1``), with the same module names, so a flax parameter path
+``DiffUNet1``, ``Nocon``), with the same module names, so a flax parameter path
 ``core/en/conv1/l/kernel`` is the ``state_dict`` key
 ``core.en.conv1.l.weight`` (``convert.py``).  Public forwards take and
 return channels-last ``[B, T, 161, 2]``; inside, tensors are NCHW.
@@ -219,3 +219,18 @@ class DiffUNet1(nn.Module):
         x = self.preprocess(torch.cat([x, x_init], dim=-1).permute(0, 3, 1, 2))
         temb = self.time_embedding(t)
         return self.core(x, temb).permute(0, 2, 3, 1)
+
+
+class Nocon(nn.Module):
+    """Unconditional denoiser eps_theta(x_t, t) of the deltamu mode
+    (JAX ``models/diffunet.py:264-277``): ``DiffUNet1`` without the
+    preprocess, ``x_t [B, T, 161, 2]``, ``t [B]``."""
+
+    def __init__(self, num_steps: int = 50):
+        super().__init__()
+        self.time_embedding = tl.TimeEmbedding(num_steps)
+        self.core = UNetCore(time_cond=True)
+
+    def forward(self, x, t):
+        temb = self.time_embedding(t)
+        return self.core(x.permute(0, 3, 1, 2), temb).permute(0, 2, 3, 1)

@@ -169,7 +169,7 @@ def _cast_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 @torch.no_grad()
 def pack_unet(net, dtype: torch.dtype = torch.float32, dual_decoder: bool = False) -> dict:
-    """Operands of a ``DiffUNet`` / ``DiffUNet1`` for
+    """Operands of a ``DiffUNet`` / ``DiffUNet1`` / ``Nocon`` for
     :func:`fused_unet_forward` in ``dtype`` (float32 or bfloat16): K3's
     encoder stages, the TCMs, the decoders (dual stages, or the two
     ``Decoder`` modules), the preprocess 1x1 and the time embedding.  In
@@ -195,14 +195,19 @@ def pack_unet(net, dtype: torch.dtype = torch.float32, dual_decoder: bool = Fals
 def fused_unet_forward(packed: dict, x: torch.Tensor, x_init: Optional[torch.Tensor] = None,
                        t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inference forward in the pack's dtype and decoder route
-    (:func:`pack_unet`): ``DiffUNet1(x, x_init, t)``, or ``DiffUNet(x)``
-    (``x_init`` and ``t`` None).  ``x``, ``x_init [B, T, 161, C]``
-    channels-last (cast to the pack's dtype), ``t [B]``; returns ``[B, T,
-    161, 2]`` in the pack's dtype.  As the JAX forward: the preprocess
-    1x1 as a product, the time embedding in f32 cast to the dtype, the
-    encoder through K3, the three TCMs, then the decoders."""
+    (:func:`pack_unet`): ``DiffUNet1(x, x_init, t)``, ``Nocon(x, t)``
+    (``x_init`` None) or ``DiffUNet(x)`` (``x_init`` and ``t`` None).
+    ``x``, ``x_init [B, T, 161, C]`` channels-last (cast to the pack's
+    dtype), ``t [B]``; returns ``[B, T, 161, 2]`` in the pack's dtype.  As
+    the JAX forward: the preprocess 1x1 as a product, the time embedding
+    in f32 cast to the dtype, the encoder through K3, the three TCMs, then
+    the decoders.  A conditioner is taken exactly when the net has a
+    preprocess (``DiffUNet1``)."""
     if packed["tcm"][0].training:
         raise ValueError("the fused forward folds the running BN statistics: inference only")
+    if (x_init is None) != (packed["pre"] is None):
+        raise ValueError("DiffUNet1 takes a conditioner x_init; Nocon and DiffUNet take "
+                         "none (x_init=None)")
     dt = packed["dtype"]
     x = x.to(dt)
     if x_init is not None:

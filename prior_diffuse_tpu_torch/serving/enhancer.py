@@ -8,8 +8,13 @@ same order, without a trainer, with the model compute in ``dtype``
 1. STFT 320/160 (K1, float32) and magnitude compression, then cast;
 2. one ``DiffUNet`` forward gives ``x_init``, divided by ``c``;
 3. with ``sigma``, the PriorGrad mask of ``x_init``;
-4. the reverse chain of ``DiffUNet1`` forwards (6 on the fast schedule)
-   in ``dtype``, ``x_init`` added back;
+4. the reverse chain of denoiser forwards (6 on the fast schedule) in
+   ``dtype``, in the config's diffusion mode (``diffusion_mode``):
+   ``pirorgrad`` (``DiffUNet1`` conditioned on ``x_init``, or with
+   ``cond_noisy`` on ``[x_init, feat / c]``; ``x_init`` added back),
+   ``deltamu`` (the unconditional ``Nocon``, the chain started at
+   ``x_T + x_init``) or ``conditional`` (``DiffUNet1`` conditioned on the
+   noisy spectrum ``feat / c``);
 5. back to float32, multiply by ``c``, decompress, ISTFT (K2, float32) to
    the input length.
 
@@ -32,7 +37,8 @@ import torch
 
 from prior_diffuse_tpu_torch.config import ExperimentConfig
 from prior_diffuse_tpu_torch.diffusion.qsample import sigma_mask
-from prior_diffuse_tpu_torch.diffusion.sampler import is_noiseless, reverse_sample, rounded
+from prior_diffuse_tpu_torch.diffusion.sampler import (diffusion_mode, is_noiseless,
+                                                       reverse_sample, rounded)
 from prior_diffuse_tpu_torch.diffusion.schedule import inference_schedule
 from prior_diffuse_tpu_torch.models.fused_forward import fused_unet_forward, pack_unet
 from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
@@ -49,18 +55,15 @@ def weights_key(*modules) -> tuple:
 
 
 class Enhancer:
-    """Serve a ``DiffUNet`` prior and a ``DiffUNet1`` residual DDPM
-    (pirorgrad mode) on ``device`` in ``dtype``; ``sigma`` turns on the
-    PriorGrad mask.  ``device`` is the card unless the caller asks for
-    ``"cpu"``; without a card that default raises."""
+    """Serve a ``DiffUNet`` prior and a DDPM denoiser (``DiffUNet1``, or
+    ``Nocon`` in deltamu mode) on ``device`` in ``dtype``; ``sigma`` turns
+    on the PriorGrad mask.  ``device`` is the card unless the caller asks
+    for ``"cpu"``; without a card that default raises."""
 
     def __init__(self, dis, ddpm, cfg: ExperimentConfig = ExperimentConfig(),
                  device="cuda", sigma: bool = False, dtype: torch.dtype = torch.float32):
         diff, train = cfg.diffusion, cfg.train
-        if not diff.pirorgrad:
-            raise ValueError("the port serves the pirorgrad mode only")
-        if diff.predict not in ("eps", "x0"):
-            raise ValueError(f"unknown predict {diff.predict!r}")
+        self.mode = diffusion_mode(diff)
         if (train.fft_num, train.win_size, train.win_shift) != (320, 320, 160):
             raise ValueError("the STFT kernels implement the 320/160 framing only")
         if dtype not in (torch.float32, torch.bfloat16):
@@ -127,7 +130,7 @@ class Enhancer:
         feat = feat.to(dt)
         x_init = fused_unet_forward(pack_dis, feat) / c
         sig = sigma_mask(x_init) if self.sigma else None
-        cond = torch.cat([x_init, feat / c], dim=-1) if diff.cond_noisy else x_init
+        cond = self.conditioner(feat, c, x_init)
 
         shape = tuple(x_init.shape)
         noise = None
@@ -141,8 +144,21 @@ class Enhancer:
         audio = reverse_sample(
             lambda x, t: fused_unet_forward(pack_ddpm, x, cond, t),
             x_init, x_T, self.sched, sig_mask=sig, noise=noise,
-            zero_init=diff.zero_init, predict=diff.predict)
+            zero_init=diff.zero_init, predict=diff.predict, mode=self.mode)
         return audio.float() * c, x_init
+
+    def conditioner(self, feat, c, x_init):
+        """The DDPM's conditioner, JAX ``ComplexDDPMTrainer._cond``
+        (``ddpm_trainer.py:238-247``), from the compressed noisy spectrum
+        ``feat``: None for ``Nocon`` (deltamu), ``feat / c``
+        (conditional), ``x_init`` (pirorgrad) or, with ``cond_noisy``, the
+        concat of ``x_init`` and ``feat / c``."""
+        if self.mode == "deltamu":
+            return None
+        if self.mode == "conditional":
+            return feat / c
+        return (torch.cat([x_init, feat / c], dim=-1) if self.cfg.diffusion.cond_noisy
+                else x_init)
 
     def _draw(self, shape, generator):
         if generator is None:

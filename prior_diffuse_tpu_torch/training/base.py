@@ -129,10 +129,18 @@ class TrainerBase:
             obj.load_state_dict(payload["state"][name])
         meta = payload["meta"]
         self.step = int(meta["step"])
-        self.gen.set_state(meta["generator"])
+        if meta["generator"] is None:  # a converted JAX checkpoint: no torch state
+            self.seed_generator()
+        else:
+            self.gen.set_state(meta["generator"])
         self.plateau.prev_loss = float(meta["plateau_prev"])
         self.plateau.best_loss = float(meta["plateau_best"])
         self.plateau.bad_epochs = int(meta["plateau_bad"])
+
+    def seed_generator(self) -> None:
+        """Seed ``self.gen`` from the run's seed (salted as the JAX
+        package salts its per-step key, ``ddpm_trainer.py``)."""
+        self.gen.manual_seed(self.run.seed ^ 0x5EED)
 
     # ---- epoch-driver helpers --------------------------------------------
     def check_nan(self, loss: float):

@@ -1,9 +1,10 @@
 """ComplexDDPMTrainer — the joint prior + residual DDPM trainer.
 
 The counterpart of ``prior_diffuse_tpu/training/ddpm_trainer.py`` on one
-device, in float32, pirorgrad mode (the ``DiffUNet1`` denoiser), with the
-``cond_noisy``, ``train_t_fast``, ``predict="x0"`` and ``x0_leak_drop``
-extensions.  ``_train_step`` follows the JAX ``_train_step_impl``
+device, in float32, in the three diffusion modes (``pirorgrad`` and
+``conditional`` with the ``DiffUNet1`` denoiser, ``deltamu`` with the
+unconditional ``Nocon``), with the ``cond_noisy``, ``train_t_fast``,
+``predict="x0"`` and ``x0_leak_drop`` extensions.  ``_train_step`` follows the JAX ``_train_step_impl``
 line for line:
 
 * STFT (K1 on CUDA) and compression of the noisy and the clean batch;
@@ -11,8 +12,10 @@ line for line:
   ``c``, is ``x_init``; in joint mode the prior's loss uses the output
   itself (in non-joint mode the prior still runs in train mode and keeps
   its new BN statistics, but takes no update);
-* q-sample, the train-mode DDPM forward, the eps or x0 target, the
-  sigma-weighted loss under ``--sigma``;
+* q-sample in the mode, the train-mode DDPM forward (conditioned on
+  ``x_init``, on the noisy spectrum in conditional mode, on nothing in
+  deltamu), the eps or x0 target, the sigma-weighted loss under
+  ``--sigma``;
 * ``lam * L_ddpm + L_dis``, one backward, per-group gradient norms, Adam.
 
 The train forwards and backward are plain PyTorch (cuDNN convolutions,
@@ -32,11 +35,12 @@ import torch
 
 from prior_diffuse_tpu_torch.config import ExperimentConfig, RunConfig
 from prior_diffuse_tpu_torch.diffusion.qsample import Draws, q_sample, sigma_mask
+from prior_diffuse_tpu_torch.diffusion.sampler import diffusion_mode
 from prior_diffuse_tpu_torch.diffusion.schedule import inference_schedule
 from prior_diffuse_tpu_torch.losses import (LOSSES, com_mse_loss, com_mse_sigma_loss,
                                              frame_mask)
 from prior_diffuse_tpu_torch.metrics.compare import compare_complex
-from prior_diffuse_tpu_torch.models.diffunet import DiffUNet, DiffUNet1
+from prior_diffuse_tpu_torch.models.diffunet import DiffUNet, DiffUNet1, Nocon
 from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
 from prior_diffuse_tpu_torch.training.base import (TrainerBase, grad_groups,
                                                    group_grad_norms, spec_features)
@@ -44,13 +48,17 @@ from prior_diffuse_tpu_torch.training.optim import get_lr, set_lr, torch_adam
 from prior_diffuse_tpu_torch.utils.logging import MetricsLogger
 
 
-def seeded_nets(seed: int, num_steps: int, cond_channels: int):
-    """``DiffUNet`` and ``DiffUNet1`` with torch's default initialisation
-    (the reference's own), drawn from ``seed`` without touching the
-    caller's global random state."""
+def seeded_nets(seed: int, num_steps: int, cond_channels: int, mode: str = "pirorgrad"):
+    """The ``DiffUNet`` prior and the mode's denoiser (``Nocon`` in
+    deltamu, else ``DiffUNet1``: the mode picks the net, not the config's
+    name, JAX ``ddpm_trainer.py:156-160``) with torch's default
+    initialisation (the reference's own), drawn from ``seed`` without
+    touching the caller's global random state."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        return DiffUNet(), DiffUNet1(num_steps, cond_channels=cond_channels)
+        ddpm = (Nocon(num_steps) if mode == "deltamu"
+                else DiffUNet1(num_steps, cond_channels=cond_channels))
+        return DiffUNet(), ddpm
 
 
 class ComplexDDPMTrainer(TrainerBase):
@@ -62,27 +70,22 @@ class ComplexDDPMTrainer(TrainerBase):
     def __init__(self, run: RunConfig, exp: ExperimentConfig, device="cuda",
                  metrics_logger: Optional[MetricsLogger] = None):
         diff = exp.diffusion
-        if not diff.pirorgrad:
-            raise NotImplementedError(
-                "deltamu / conditional modes (the Nocon denoiser) are not "
-                "ported yet (ROADMAP Queue 1)")
+        mode = diffusion_mode(diff)
         if exp.train.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype {exp.train.compute_dtype!r}: the port trains in "
-                "float32 only; bf16 training is ROADMAP Queue 1")
+                "float32 only; bf16 training is ROADMAP Queue 1 item 16")
         if exp.model.name != "DiffUNet":
             raise NotImplementedError(
                 f"prior {exp.model.name!r}: the port has the DiffUNet prior only "
                 "(other priors are ROADMAP Queue 1 item 10)")
-        if diff.predict not in ("eps", "x0"):
-            raise ValueError(f"unknown predict {diff.predict!r}")
         self.x0_leak_drop = float(diff.x0_leak_drop)
         if self.x0_leak_drop and diff.predict != "x0":
             raise ValueError("x0_leak_drop requires predict='x0'")
         if not 0.0 <= self.x0_leak_drop <= 1.0:
             raise ValueError("x0_leak_drop must be in [0, 1]")
         super().__init__(run, exp, device, metrics_logger)
-        self.mode = "pirorgrad"
+        self.mode = mode
         self.predict = diff.predict
         self.cond_noisy = bool(diff.cond_noisy)
         self.c = diff.scale_c
@@ -99,7 +102,8 @@ class ComplexDDPMTrainer(TrainerBase):
             self.t_grid = self.ab_grid = None
         self.loss_fn = LOSSES[self.cfg.loss]
 
-        dis, ddpm = seeded_nets(run.seed, self.num_steps, 4 if self.cond_noisy else 2)
+        dis, ddpm = seeded_nets(run.seed, self.num_steps, 4 if self.cond_noisy else 2,
+                                self.mode)
         # the serving path holds the same modules; it also turns TF32 off
         # before any train step (f32 means f32, as in the JAX reference)
         self.enhancer = Enhancer(dis, ddpm, exp, device=dev, sigma=run.sigma)
@@ -110,7 +114,8 @@ class ComplexDDPMTrainer(TrainerBase):
         self.nets = {"dis": self.dis, "ddpm": self.ddpm}
         self.opts = {"opt_dis": self.opt_dis, "opt_ddpm": self.opt_ddpm}
         self.grad_groups = {n: grad_groups(m) for n, m in self.nets.items()}
-        self.gen = torch.Generator(device=dev).manual_seed(run.seed ^ 0x5EED)
+        self.gen = torch.Generator(device=dev)
+        self.seed_generator()
 
         if run.retrain:
             restored = self.ckpt.restore_latest()
@@ -121,11 +126,6 @@ class ComplexDDPMTrainer(TrainerBase):
                 logging.info("resumed at epoch %d (step %d)", self.epoch, self.step)
 
     # ---- steps --------------------------------------------------------------
-    def _cond(self, feat_sc, x_init):
-        """DDPM conditioner: x_init (pirorgrad), or with ``cond_noisy`` the
-        concat of x_init and the noisy spectrum over c."""
-        return torch.cat([x_init, feat_sc], dim=-1) if self.cond_noisy else x_init
-
     def _train_step(self, noisy, clean, frame_nums, draws: Optional[Draws] = None,
                     norms: bool = True):
         """One train step on device tensors ``noisy, clean [B, L]``,
@@ -152,9 +152,15 @@ class ComplexDDPMTrainer(TrainerBase):
                 lbl, x_init, self.alpha_bar, self.num_steps, self.mode, sig,
                 t_grid=self.t_grid, ab_grid=self.ab_grid,
                 leak_drop=self.x0_leak_drop, generator=self.gen, draws=draws)
-            pred = self.ddpm(x_t, self._cond(feat / self.c, x_init), t)
-            # x0: the residual the sampler adds back onto x_init
-            target = lbl - x_init if self.predict == "x0" else noise
+            cond = self.enhancer.conditioner(feat, self.c, x_init)
+            pred = self.ddpm(x_t, t) if cond is None else self.ddpm(x_t, cond, t)
+            if self.predict == "x0":
+                # the chain's clean-side quantity: the residual the sampler
+                # adds back onto x_init (pirorgrad), the clean spectrum
+                # (conditional)
+                target = lbl - x_init if self.mode == "pirorgrad" else lbl
+            else:
+                target = noise
             if sigma:
                 loss_ddpm = com_mse_sigma_loss(pred, target, frame_nums, sig)
             else:

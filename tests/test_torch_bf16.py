@@ -430,11 +430,12 @@ def test_fused_unet_forward_is_inference_only():
 LENGTH = 2400
 
 
-@partial(jax.jit, static_argnames=("sigma",))
-def _jax_enhance_bf16(dis_vars, ddpm_vars, wav, rng, *, sigma):
+@partial(jax.jit, static_argnames=("sigma", "mode"))
+def _jax_enhance_bf16(dis_vars, ddpm_vars, wav, rng, *, sigma, mode="pirorgrad"):
     """``ComplexDDPMTrainer.enhance_batch``'s ``impl`` at ``serve_dtype =
     bfloat16`` and route ``dual`` (``_resolve_fused("", bf16)``) on
-    explicit variables: the JAX package's bf16 serving path."""
+    explicit variables, in ``mode`` (``ddpm_vars`` a ``Nocon``'s in
+    deltamu): the JAX package's bf16 serving path."""
     cfg, diff = JTrainConfig(), JDiffusionConfig()
     dt, c = BF16, diff.scale_c
     feat = j_spec_features(wav, cfg)
@@ -444,14 +445,16 @@ def _jax_enhance_bf16(dis_vars, ddpm_vars, wav, rng, *, sigma):
     x_init = fused(packed["dis"], feat.astype(dt))
     x_init = x_init.astype(dt) / jnp.asarray(c, dt)
     sig = j_sigma_mask(x_init) if sigma else None
-    cond = x_init  # _cond in pirorgrad mode
+    # _cond; the deltamu forward takes no conditioner
+    cond = {"pirorgrad": x_init, "deltamu": None,
+            "conditional": feat.astype(dt) / jnp.asarray(c, dt)}[mode]
 
     def model_fn(x, t):
         return fused(packed["ddpm"], x.astype(dt), cond, t.astype(dt),
                      num_steps=diff.num_steps).astype(dt)
 
     audio = j_reverse_sample(model_fn, rng, x_init, x_init.shape, j_inference_schedule(diff),
-                             "pirorgrad", sig, dtype=dt, n_avg=diff.n_avg,
+                             mode, sig, dtype=dt, n_avg=diff.n_avg,
                              zero_init=diff.zero_init, predict=diff.predict)
     spec = j_decompress_spec(audio.astype(jnp.float32) * c, cfg.feat_type)
     return j_istft(spec, length=wav.shape[-1], fft_num=cfg.fft_num, win_size=cfg.win_size,

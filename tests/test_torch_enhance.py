@@ -39,12 +39,14 @@ def nets():
     return make_pair("DiffUNet", seed=3), make_pair("DiffUNet1", seed=4)
 
 
-@partial(jax.jit, static_argnames=("sigma", "cond_noisy", "zero_init"))
-def _jax_enhance(dis_vars, ddpm_vars, wav, rng, *, sigma, cond_noisy, zero_init=False):
+@partial(jax.jit, static_argnames=("sigma", "cond_noisy", "zero_init", "mode"))
+def _jax_enhance(dis_vars, ddpm_vars, wav, rng, *, sigma, cond_noisy, zero_init=False,
+                 mode="pirorgrad"):
     """``ComplexDDPMTrainer.enhance_batch``'s impl on explicit variables
-    (f32, flax forwards, pirorgrad, the default diffusion config but
-    ``cond_noisy`` and ``zero_init``)."""
-    from prior_diffuse_tpu.models.diffunet import DiffUNet, DiffUNet1
+    (f32, flax forwards, the default diffusion config but ``cond_noisy``,
+    ``zero_init`` and the ``mode``: ``Nocon`` in deltamu, else
+    ``DiffUNet1``)."""
+    from prior_diffuse_tpu.models.diffunet import DiffUNet, DiffUNet1, Nocon
 
     cfg, diff = JTrainConfig(), JDiffusionConfig(cond_noisy=cond_noisy, zero_init=zero_init)
     c = diff.scale_c
@@ -53,16 +55,19 @@ def _jax_enhance(dis_vars, ddpm_vars, wav, rng, *, sigma, cond_noisy, zero_init=
     x_init = x_init / jnp.asarray(c, jnp.float32)
     sig = sigma_mask(x_init) if sigma else None
     sched = inference_schedule(diff)
-    # ComplexDDPMTrainer._cond in pirorgrad mode
-    cond = (jnp.concatenate([x_init, feat / jnp.asarray(c, jnp.float32)], axis=-1)
-            if cond_noisy else x_init)
+    # ComplexDDPMTrainer._cond
+    feat_sc = feat / jnp.asarray(c, jnp.float32)
+    cond = (feat_sc if mode == "conditional" else
+            jnp.concatenate([x_init, feat_sc], axis=-1) if cond_noisy else x_init)
 
     def model_fn(x, t):
+        if mode == "deltamu":
+            return Nocon(num_steps=diff.num_steps).apply(ddpm_vars, x, t, train=False)
         return DiffUNet1(num_steps=diff.num_steps).apply(
             ddpm_vars, x, cond, t, train=False)
 
     audio = reverse_sample(model_fn, rng, x_init, x_init.shape, sched,
-                           "pirorgrad", sig, dtype=jnp.float32,
+                           mode, sig, dtype=jnp.float32,
                            n_avg=diff.n_avg, zero_init=diff.zero_init,
                            predict=diff.predict)
     spec = decompress_spec(audio.astype(jnp.float32) * c, cfg.feat_type)
@@ -163,10 +168,15 @@ def test_enhance_files_real_model(nets):
 
 
 @pytest.mark.parametrize("cfg", [
-    ExperimentConfig(diffusion=DiffusionConfig(pirorgrad=False)),
+    # what the JAX trainer refuses too: cond_noisy outside pirorgrad, and
+    # predict="x0" in deltamu (no clean x0 target)
+    ExperimentConfig(diffusion=DiffusionConfig(pirorgrad=False, cond_noisy=True)),
+    ExperimentConfig(diffusion=DiffusionConfig(pirorgrad=False, deltamu=True,
+                                               cond_noisy=True)),
+    ExperimentConfig(diffusion=DiffusionConfig(pirorgrad=False, deltamu=True, predict="x0")),
     ExperimentConfig(diffusion=DiffusionConfig(predict="v")),
     ExperimentConfig(train=TrainConfig(fft_num=512, win_size=512, win_shift=256)),
-], ids=["not-pirorgrad", "predict", "framing"])
+], ids=["not-pirorgrad", "deltamu-cond_noisy", "deltamu-x0", "predict", "framing"])
 def test_enhancer_rejects_what_it_does_not_serve(nets, cfg):
     (_, _, dis), (_, _, ddpm) = nets
     with pytest.raises(ValueError):

@@ -17,9 +17,10 @@ import torch
 from prior_diffuse_tpu.models import layers as jlayers
 from prior_diffuse_tpu.models.diffunet import DiffUNet as JDiffUNet
 from prior_diffuse_tpu.models.diffunet import DiffUNet1 as JDiffUNet1
+from prior_diffuse_tpu.models.diffunet import Nocon as JNocon
 from prior_diffuse_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from prior_diffuse_tpu_torch.models import layers
-from prior_diffuse_tpu_torch.models.diffunet import DiffUNet, DiffUNet1
+from prior_diffuse_tpu_torch.models.diffunet import DiffUNet, DiffUNet1, Nocon
 from prior_diffuse_tpu_torch.models.fused_forward import fused_unet_forward, pack_unet
 
 T_FRAMES = 11
@@ -49,6 +50,9 @@ def make_pair(name, seed=0, cond_channels=2):
     if name == "DiffUNet":
         jm, tm = JDiffUNet(), DiffUNet()
         variables = jm.init(jax.random.PRNGKey(seed), x)
+    elif name == "Nocon":
+        jm, tm = JNocon(), Nocon()
+        variables = jm.init(jax.random.PRNGKey(seed), x, jnp.zeros((1,)))
     else:
         jm, tm = JDiffUNet1(), DiffUNet1(cond_channels=cond_channels)
         cond = jnp.zeros((1, T_FRAMES, 161, cond_channels))

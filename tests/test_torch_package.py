@@ -1,8 +1,8 @@
 """Package rules of the PyTorch port.
 
 * Every module of ``prior_diffuse_tpu_torch`` imports with jax, flax, optax,
-  orbax, yaml and the JAX package blocked, the training and bf16 serving
-  slices' included,
+  orbax, yaml and the JAX package blocked, the training, bf16 serving and
+  diffusion-mode slices' included,
   and ``conf/diff.yml`` loads so: the machine with the GPU has none of
   them, and this test process imports jax (``conftest.py``), so an
   accidental import would pass every other test here.
@@ -56,6 +56,10 @@ TRAINING_SLICE = [
 BF16_SERVING_SLICE = ["models.fused_forward", "ops.cuda.convblock", "serving.enhancer",
                       "serving.enhance", "serving.streaming", "diffusion.sampler"]
 
+# the modules of the deltamu / conditional modes and the checkpoint bridge
+MODES_SLICE = ["models.diffunet", "convert", "diffusion.sampler", "serving.enhancer",
+               "training.base", "training.checkpoint", "training.ddpm_trainer"]
+
 
 def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
@@ -64,7 +68,7 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     walked = set(proc.stdout.split())
     assert len(walked) >= 44  # every module was walked
-    missing = [m for m in TRAINING_SLICE + BF16_SERVING_SLICE
+    missing = [m for m in TRAINING_SLICE + BF16_SERVING_SLICE + MODES_SLICE
                if f"prior_diffuse_tpu_torch.{m}" not in walked]
     assert not missing, missing
 

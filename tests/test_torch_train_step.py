@@ -11,12 +11,20 @@ configuration compiles the JAX step once, in a module-scoped fixture:
 
 * ``joint_sigma_eps``: the default system (joint, ``--sigma``, eps);
 * ``frozen_x0_leak``: non-joint (frozen prior), ``predict="x0"``,
-  ``x0_leak_drop=1``, plus ``train_t_fast`` and ``cond_noisy``.
+  ``x0_leak_drop=1``, plus ``train_t_fast`` and ``cond_noisy``;
+* ``deltamu_eps``: the deltamu mode (the unconditional ``Nocon``
+  denoiser), joint, ``--sigma``;
+* ``conditional_eps``: the conditional mode (``DiffUNet1`` conditioned on
+  the noisy spectrum), joint;
+* ``conditional_x0``: the conditional mode with ``predict="x0"`` (the
+  clean spectrum as the target), joint, ``--sigma``, ``train_t_fast``.
 
-Bounds: losses rtol 1e-5; group gradient norms rtol 1e-4; new BN running
-statistics rtol 1e-5; parameter updates at most ``2 * lr`` per element,
-and 1e-4 relative L2 per net over the elements whose gradient is at
-least ``100 * eps`` (1e-6).  Adam's first step is ``lr * g / (|g| +
+Bounds: losses rtol 1e-5; group gradient norms rtol 1e-4 (1e-3 in the
+deltamu and conditional modes, below); new BN running statistics rtol
+1e-5; parameter updates at most ``2 * lr`` per element, and 1e-4 (1e-3 in
+those modes) relative L2 per net over the elements whose gradient is at
+least ``100 * eps`` (1e-6) and has the same sign in both packages, the
+elements of opposite sign carrying at most 1e-3 of the gradient's norm.  Adam's first step is ``lr * g / (|g| +
 eps)``, about ``lr * sign(g)``: where ``|g|`` is within a few ``eps``
 the update follows the sign and size of a gradient that is mostly
 float32 rounding (the bias of a conv that feeds a BatchNorm has a
@@ -33,6 +41,22 @@ is why the L2 bound is taken over the steady elements.  The eval step
 (prior + fast-6 chain + diagnostics, given the JAX chain's ``x_T``)
 within 2.5e-4 x max|ref|, the bar of ``test_torch_enhance.py``.  The
 learning rates after ``_halve_lrs`` equal JAX's.
+
+One step is chaotic in the float32 rounding of its input.  Changing the
+clean batch by a relative 1e-7 N(0, 1) (rounding), two draws, from the
+JAX initial weights, moves the port's own DDPM step (CPU, this file's
+sizes): in deltamu, the ``core/en`` stage 3-5 kernel gradients by ~3e-3
+relative L2, the sign of 5-8 elements with ``|g| >= 1e-6``, group norms
+by up to 8e-5 (``tcm1``, ``time_embedding``) and the updates over the
+same-sign steady elements by 2.2e-4; in conditional, group norms by up
+to 3e-4 (``time_embedding``) and 3.5e-3 (``preprocess/bias``), the
+updates by 0.5-0.9e-4; in pirorgrad (``joint_sigma_eps``) one draw moved
+nothing above 1e-6 and the other the ``preprocess/bias`` norm by 5e-3,
+``core/en``'s by 5e-5 and the updates by 1.5e-4 (11 sign flips).  So the
+pirorgrad configurations pass their bounds at these inputs with little
+room, and the deltamu and conditional ones are held to 1e-3 on the
+group norms and the same-sign updates, above the floor their own
+rounding sets.
 
 Also here: train-mode BatchNorm against flax's (output and running
 statistics, rtol 1e-5), which stock ``torch.nn.BatchNorm`` fails.
@@ -60,11 +84,15 @@ LR_DIS, LR_DDPM = 5e-4, 2e-4
 # two torch threads a worker process: see test_torch_trainer.py
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
-CONFIGS = {
-    "joint_sigma_eps": (dict(joint=True, sigma=True), dict()),
+CONFIGS = {  # name: (run flags, diffusion config, group-norm and update rtol)
+    "joint_sigma_eps": (dict(joint=True, sigma=True), dict(), 1e-4),
     "frozen_x0_leak": (dict(joint=False, sigma=False),
                        dict(predict="x0", x0_leak_drop=1.0, train_t_fast=True,
-                            cond_noisy=True)),
+                            cond_noisy=True), 1e-4),
+    "deltamu_eps": (dict(joint=True, sigma=True), dict(pirorgrad=False, deltamu=True), 1e-3),
+    "conditional_eps": (dict(joint=True, sigma=False), dict(pirorgrad=False), 1e-3),
+    "conditional_x0": (dict(joint=True, sigma=True),
+                       dict(pirorgrad=False, predict="x0", train_t_fast=True), 1e-3),
 }
 
 
@@ -115,7 +143,7 @@ def step_pair(request, corpus, tmp_path_factory):
     """The JAX step and the port's step from one state on one batch."""
     from prior_diffuse_tpu.training import ComplexDDPMTrainer as JTrainer
 
-    flags, diff_kw = CONFIGS[request.param]
+    flags, diff_kw, rtol = CONFIGS[request.param]
     tmp = tmp_path_factory.mktemp(request.param)
     jrun = jcfg.RunConfig(assets=str(tmp / "jax"), doc="t", data_root=corpus, **flags)
     jtr = JTrainer(jrun, _exp(jcfg, diff_kw), mesh=make_mesh(dp=1))
@@ -135,7 +163,7 @@ def step_pair(request, corpus, tmp_path_factory):
     got = tr._train_step(torch.from_numpy(batch.noisy), torch.from_numpy(batch.clean),
                          torch.from_numpy(batch.frame_nums).long(), draws=draws)
     want = (float(total), float(l_dis), float(l_ddpm), {k: float(v) for k, v in gnorms.items()})
-    return dict(name=request.param, flags=flags, jtr=jtr, jstate=jstate, state0=state0,
+    return dict(name=request.param, flags=flags, rtol=rtol, jtr=jtr, jstate=jstate, state0=state0,
                 tr=tr, before=before, got=got, want=want, batch=batch)
 
 
@@ -151,7 +179,7 @@ def test_grad_norms_match(step_pair):
     assert sorted(got) == sorted(want)
     for k in want:
         net_max = max(v for n, v in want.items() if n.split("/")[0] == k.split("/")[0])
-        np.testing.assert_allclose(float(got[k]), want[k], rtol=1e-4,
+        np.testing.assert_allclose(float(got[k]), want[k], rtol=step_pair["rtol"],
                                    atol=1e-6 * net_max, err_msg=k)
 
 
@@ -174,10 +202,16 @@ def _flat(tree):
     return np.concatenate([a.ravel() for a in jax.tree.leaves(tree)])
 
 
+def _jax_grad(jax_opt_state):
+    """The gradient (plus ``l2 * w``) of the first step, from the first
+    moment after it, ``0.1 * (g + l2 * w)``."""
+    return _flat(_np(_adam(jax_opt_state).mu)) / 0.1
+
+
 def _steady(jax_opt_state):
-    """Elements whose JAX gradient is at least 100 * eps, from the first
-    moment after one step, ``0.1 * (g + l2 * w)``; at least half the net."""
-    steady = np.abs(_flat(_np(_adam(jax_opt_state).mu)) / 0.1) >= 1e-6
+    """Elements whose JAX gradient is at least 100 * eps; at least half
+    the net."""
+    steady = np.abs(_jax_grad(jax_opt_state)) >= 1e-6
     assert steady.mean() > 0.5
     return steady
 
@@ -197,8 +231,13 @@ def test_param_updates_match(step_pair):
             assert not d_want.any() and not d_got.any()  # the frozen prior
             continue
         assert np.abs(d_got - d_want).max() <= 2 * lr, name
-        steady = _steady(jstate["opt_" + name])
-        assert _rel_l2(d_got[steady], d_want[steady]) <= 1e-4, name
+        g_want = _jax_grad(jstate["opt_" + name])
+        g_got = _flat(state_dict_to_flax(
+            net, {n: p.grad for n, p in net.named_parameters()})["params"])
+        flips = np.sign(g_got) != np.sign(g_want)
+        assert np.linalg.norm(g_want[flips]) <= 1e-3 * np.linalg.norm(g_want), name
+        steady = _steady(jstate["opt_" + name]) & ~flips
+        assert _rel_l2(d_got[steady], d_want[steady]) <= step_pair["rtol"], name
 
 
 def test_adam_moments_match(step_pair):

@@ -229,14 +229,19 @@ def test_eval_needs_a_cv_batch(corpus, tmp_path):
         ComplexDDPMTrainer(run, exp, device="cpu").check_nan(float("nan"))
 
 
-@pytest.mark.parametrize("exp", [
-    _exp(pirorgrad=False, deltamu=True),
-    _exp(pirorgrad=False),
-    dataclasses.replace(_exp(), train=tcfg.TrainConfig(compute_dtype="bfloat16")),
-    dataclasses.replace(_exp(), model=tcfg.ModelConfig(name="GCRN")),
-], ids=["deltamu", "conditional", "bf16", "gcrn"])
-def test_trainer_refuses_what_is_not_ported(exp, tmp_path):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("exp,error", [
+    # the modes' combinations that the JAX trainer refuses too
+    (_exp(pirorgrad=False, deltamu=True, predict="x0"), ValueError),
+    (_exp(pirorgrad=False, cond_noisy=True), ValueError),
+    (_exp(pirorgrad=False, deltamu=True, predict="x0", x0_leak_drop=0.5), ValueError),
+    (_exp(pirorgrad=False, deltamu=True, cond_noisy=True), ValueError),
+    # what the port does not train yet
+    (dataclasses.replace(_exp(), train=tcfg.TrainConfig(compute_dtype="bfloat16")),
+     NotImplementedError),
+    (dataclasses.replace(_exp(), model=tcfg.ModelConfig(name="GCRN")), NotImplementedError),
+], ids=["deltamu", "conditional", "deltamu-leak_drop", "deltamu-cond_noisy", "bf16", "gcrn"])
+def test_trainer_refuses_what_is_not_ported(exp, error, tmp_path):
+    with pytest.raises(error):
         ComplexDDPMTrainer(tcfg.RunConfig(assets=str(tmp_path)), exp, device="cpu")
 
 
