@@ -66,7 +66,22 @@ Phases (each passes or ends the script with a non-zero exit):
    versions, the CPU branch the tests hold to JAX) at 2 x 0.5 s in each
    mode; and the trainer of phase 5 in each mode: the K1 step against the
    plain-STFT step, 5 timed steps, one ``evaluate()`` cv batch (K1 = 2,
-   K2 = 2, K3 = 35).
+   K2 = 2, K3 = 35);
+8. the GCRN and DB-AIAT priors (``conf/gcrn.yml``, ``conf/dbaiat.yml``):
+   the five families' parameter counts against the reference oracle;
+   cuDNN's f32 LSTM and GRU and each family's forward on the card against
+   the same module on the CPU, with TF32 off (bounded) and on (printed);
+   ``ComplexTrainer.enhance_batch`` on the batch of phase 3 for GCRN and
+   ``aia_complex_trans_ri`` (K1 = 1, K2 = 1, K3 = 0) against the plain
+   versions, timed, plus five requests through ``enhance_files``; each of
+   those priors under ``ComplexDDPMTrainer``'s ``Enhancer`` (plain and
+   ``--sigma``: K1 = 1, K2 = 1, K3 = 30, the prior unpacked) and
+   ``prior_only_server``, then that trainer's joint step and one
+   ``evaluate()`` cv batch; ``ComplexTrainer`` training at each config's
+   width (GCRN 8 x 48000, DB-AIAT 4 x 48000): the K1 step against the
+   plain-STFT step (and the wrong window rejected), 5 timed steps,
+   ``evaluate()`` (K1 = 2, K2 = 2 a cv batch); and ``cli.main --trainer
+   ComplexTrainer`` on each yml for one epoch, then ``--generate``.
 
 It prints a JSON line of per-kernel results before the last line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -140,6 +155,16 @@ MODES = {"deltamu": {"pirorgrad": False, "deltamu": True}, "conditional": {"piro
 # products of bf16 operands, both rounding at the same points.
 BF16_CARD_VS_CPU_RMS = 2e-2
 CARD_VS_CPU_LENGTH = 8000
+# Phase 8: the reference oracle's parameter counts (tests/test_models.py)
+PRIOR_PARAMS = {"GCRN": 9_771_340, "aia_complex_trans_ri": 1_179_030,
+                "dual_aia_trans_merge_crm": 2_810_859, "dual_aia_complex_trans": 2_085_935,
+                "aia_complex_trans_mag": 906_905}
+# the served and trained priors, their experiment files and train batches
+PRIOR_CONFS = {"GCRN": ("gcrn.yml", 8), "aia_complex_trans_ri": ("dbaiat.yml", 4)}
+# A recurrent or attention forward on the card (cuDNN RNNs, cuBLAS products,
+# TF32 off) against the same module on the CPU: float32 sums in another
+# order through 301 recurrent steps; TF32 (10-bit mantissas) misses it.
+CARD_VS_CPU_F32 = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -346,21 +371,34 @@ def speechlike(n: int, length: int, seed: int) -> np.ndarray:
 def seeded_nets(seed: int, device, classes=None):
     """Full-width nets (``DiffUNet`` and ``DiffUNet1`` unless ``classes``
     names others) with weights drawn from an explicit
-    generator: uniform(+-1/sqrt(fan_in)) kernels and biases, PReLU slopes
-    in [0.1, 0.4], BN scale/shift near 1/0 and running statistics
-    mean ~ N(0, 0.1), var ~ U(0.5, 1.5) (not the 0/1 defaults, so the
-    folded BN is exercised)."""
+    generator: uniform(+-1/sqrt(fan_in)) kernels and biases (recurrent
+    weights +-1/sqrt(hidden), the attention's products the same), PReLU
+    slopes in [0.1, 0.4], BN and layer-norm scale/shift near 1/0 and BN
+    running statistics mean ~ N(0, 0.1), var ~ U(0.5, 1.5) (not the 0/1
+    defaults, so the folded BN is exercised)."""
     import torch
     import torch.nn as nn
 
+    from prior_diffuse_tpu_torch.models import dbaiat, layers
     from prior_diffuse_tpu_torch.models.diffunet import DiffUNet, DiffUNet1
 
     g = torch.Generator().manual_seed(seed)
+    norms = (nn.LayerNorm, dbaiat.LayerNormOverF, dbaiat.GroupNorm1)
     nets = []
     for net in (cls() for cls in (classes or (DiffUNet, DiffUNet1))):
         with torch.no_grad():
             for m in net.modules():
-                if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                if isinstance(m, norms):
+                    m.weight.uniform_(0.8, 1.2, generator=g)
+                    m.bias.uniform_(-0.1, 0.1, generator=g)
+                elif isinstance(m, nn.RNNBase):
+                    for w in m.parameters():
+                        w.uniform_(-m.hidden_size ** -0.5, m.hidden_size ** -0.5, generator=g)
+                elif isinstance(m, layers.MultiHeadAttention):
+                    for w in m.parameters():
+                        w.uniform_(-m.in_proj_weight.shape[1] ** -0.5,
+                                   m.in_proj_weight.shape[1] ** -0.5, generator=g)
+                elif isinstance(m, nn.modules.batchnorm._BatchNorm):
                     m.weight.uniform_(0.8, 1.2, generator=g)
                     m.bias.uniform_(-0.1, 0.1, generator=g)
                     m.running_mean.normal_(0.0, 0.1, generator=g)
@@ -618,30 +656,36 @@ def rel_rms(got, want) -> float:
 
 def run_main_path(device, dis, ddpm, card, dtype, mode: str = "pirorgrad",
                   sigmas=(False, True)) -> dict:
-    """Phase 3 (pirorgrad) or 7a (the other modes) in ``dtype``: a batch
-    for each of ``sigmas`` (``--sigma`` off, on) through the kernels,
-    against the same enhancer through the plain versions and (bf16)
-    against f32 on one ``x_T``, its launch counts, CUDA-event ms, device
-    ms and kernel launches; the layers and top kernels of the plain batch.
-    Returns the launch counts of each batch by path name."""
+    """Phase 3 (pirorgrad), 7a (the other modes) or 8 (another prior) in
+    ``dtype``: a batch for each of ``sigmas`` (``--sigma`` off, on) through
+    the kernels, against the same enhancer through the plain versions and
+    (bf16) against f32 on one ``x_T``, its launch counts, CUDA-event ms,
+    device ms and kernel launches; the layers and top kernels of the plain
+    batch.  Returns the launch counts of each batch by path name."""
     import torch
 
+    from prior_diffuse_tpu_torch.models.diffunet import DiffUNet
     from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
 
     bf16 = dtype == torch.bfloat16
-    want = {"stft": 1, "istft": 1, "enc_stage_bf16" if bf16 else "enc_stage": 35}
+    # a prior other than the DiffUNet runs unpacked: K3 in the 6 DDPM forwards
+    packed_prior = isinstance(dis, DiffUNet)
+    want = {"stft": 1, "istft": 1,
+            "enc_stage_bf16" if bf16 else "enc_stage": 35 if packed_prior else 30}
     wav = speechlike(BATCH, LENGTH, 3)
     wav_dev = torch.from_numpy(wav).to(device)
     counts = {}
     for sigma in sigmas:
-        label = f"{mode}, {'bf16' if bf16 else 'f32'}, {'sigma' if sigma else 'plain'}"
+        label = (("" if packed_prior else f"{type(dis).__name__} prior, ")
+                 + f"{mode}, {'bf16' if bf16 else 'f32'}, {'sigma' if sigma else 'plain'}")
         enh = Enhancer(dis, ddpm, mode_config(mode), device=device, sigma=sigma, dtype=dtype)
         if enh.mode != mode:
             fail(f"the enhancer serves {enh.mode}, not {mode}")
         reset_counts()
         out = enh.enhance_batch(wav, torch.Generator(device=device).manual_seed(4))
         torch.cuda.synchronize()
-        path = ("serve_batch" + ("" if mode == "pirorgrad" else f"_{mode}")
+        path = ("serve_batch" + ("" if packed_prior else f"_{type(dis).__name__}")
+                + ("" if mode == "pirorgrad" else f"_{mode}")
                 + ("_bf16" if bf16 else "") + ("_sigma" if sigma else ""))
         counts[path] = expect_counts(f"one batch [{label}]", want)
         with plain_versions():
@@ -697,8 +741,8 @@ def run_main_path(device, dis, ddpm, card, dtype, mode: str = "pirorgrad",
 
 def layer_times(enh, wav, card, label: str):
     """Per-layer times of one batch in the enhancer's dtype and mode: STFT,
-    prior, one chain step, the chain (its steps), ISTFT; device ms from the
-    profiler."""
+    prior (packed, or a module forward), one chain step, the chain (its
+    steps), ISTFT; device ms from the profiler."""
     import torch
 
     from prior_diffuse_tpu_torch.models.fused_forward import fused_unet_forward
@@ -710,12 +754,13 @@ def layer_times(enh, wav, card, label: str):
     with torch.no_grad():
         feat = compress_spec(kstft.stft(wav), "sqrt")
         pack_dis, pack_ddpm = enh.packs()
-        x_init = fused_unet_forward(pack_dis, feat) / c
+        prior = ((lambda: enh.dis(feat)) if pack_dis is None
+                 else (lambda: fused_unet_forward(pack_dis, feat)))
+        x_init = prior() / c
         cond = enh.conditioner(feat, c, x_init)
         t = torch.full((BATCH,), float(enh.sched.T[-1]), device=wav.device, dtype=enh.dtype)
         x = torch.randn_like(x_init)
         spec = feat.contiguous()
-        prior = lambda: fused_unet_forward(pack_dis, feat)
         step = lambda: fused_unet_forward(pack_ddpm, x, cond, t)
         times = {"stft": cuda_ms(lambda: kstft.stft(wav)), "prior": cuda_ms(prior, iters=10),
                  "ddpm_step": cuda_ms(step, iters=10),
@@ -865,6 +910,18 @@ def write_train_corpus(root: str) -> str:
                                    n_test=CORPUS[1], min_len=48000, max_len=64000, seed=8)
 
 
+def train_losses(out) -> list:
+    """The loss tensors of a ``_train_step``'s result: ``(total, loss_dis,
+    loss_ddpm)`` of ``ComplexDDPMTrainer``'s, ``(loss,)`` of
+    ``ComplexTrainer``'s (the group norms left out)."""
+    return [v for v in out if not isinstance(v, dict)]
+
+
+def opt_of(tr, net: str):
+    """The optimizer of ``tr``'s net ``net`` (``ComplexTrainer`` has one)."""
+    return tr.opts.get(f"opt_{net}") or tr.opts["opt"]
+
+
 def one_step(tr, batch, plain: bool = False) -> dict:
     """One ``_train_step`` (through the plain STFT if ``plain``); returns the
     losses and, per net, the flat gradient and parameter update."""
@@ -878,7 +935,7 @@ def one_step(tr, batch, plain: bool = False) -> dict:
     else:
         out = tr._train_step(*batch)
     torch.cuda.synchronize()
-    res = {"loss": [float(v) for v in out[:3]], "grad": {}, "update": {}}
+    res = {"loss": [float(v) for v in train_losses(out)], "grad": {}, "update": {}}
     for n, m in tr.nets.items():
         res["grad"][n] = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
                                     .flatten() for p in m.parameters()])
@@ -900,7 +957,7 @@ def compare_steps(label: str, tr, got: dict, ref: dict, updates: bool) -> list:
         if not (finite([a, b]) and abs(a - b) <= STEP_LOSS_RTOL * abs(b)):
             misses.append(f"{name} {a} vs {b}")
     for n in tr.nets:
-        lr = tr.opts[f"opt_{n}"].param_groups[0]["lr"]
+        lr = opt_of(tr, n).param_groups[0]["lr"]
         g, g_ref = got["grad"][n], ref["grad"][n]
         du, ref_u = got["update"][n], ref["update"][n]
         flips = torch.sign(g) != torch.sign(g_ref)
@@ -969,7 +1026,7 @@ def timed_steps(tr, batches, card, iters: int = 10, label: str = "joint, sigma")
 
     def step():
         out = tr._train_step(*batches[len(losses) % len(batches)], norms=False)
-        losses.append(torch.stack(out[:3]))
+        losses.append(torch.stack(train_losses(out)))
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -984,8 +1041,9 @@ def timed_steps(tr, batches, card, iters: int = 10, label: str = "joint, sigma")
         t0 = time.perf_counter()
         float(tr._train_step(*batches[i % len(batches)], norms=False)[0])
         wall.append((time.perf_counter() - t0) * 1e3)
-    print(f"train step [{label}] batch {TRAIN_BATCH} x {LENGTH}, f32: {ms:.3f} ms/step "
-          f"(CUDA events, mean of {iters}), {TRAIN_BATCH / (ms / 1e3):.2f} utterances/s, "
+    rows = batches[0][0].shape[0]
+    print(f"train step [{label}] batch {rows} x {LENGTH}, f32: {ms:.3f} ms/step "
+          f"(CUDA events, mean of {iters}), {rows / (ms / 1e3):.2f} utterances/s, "
           f"peak memory {peak / 2**20:.1f} MiB; host clock {np.median(wall):.3f} ms/step "
           f"(median of 5, {min(wall):.3f}-{max(wall):.3f}); losses of the last step "
           f"{[round(float(v), 5) for v in losses[-1]]}; card {card}", flush=True)
@@ -1258,6 +1316,313 @@ def train_mode_phase(device, card, root: str, corpus: str, mode: str) -> tuple:
     return step_counts, eval_counts
 
 
+def prior_nets(device) -> dict:
+    """Phase 8: the five non-DiffUNet families at full width with seeded
+    weights, their parameter counts held to the reference oracle; returns
+    the served two by name."""
+    from prior_diffuse_tpu_torch.models import model_class
+
+    counts, served = {}, {}
+    for i, name in enumerate(PRIOR_PARAMS):
+        net = seeded_nets(40 + i, device, (model_class(name),))[0]
+        counts[name] = sum(p.numel() for p in net.parameters())
+        if name in PRIOR_CONFS:
+            served[name] = net
+    print("prior parameter counts: " + ", ".join(f"{k} {v:,}" for k, v in counts.items()),
+          flush=True)
+    if counts != PRIOR_PARAMS:
+        fail(f"prior parameter counts {counts}, expected {PRIOR_PARAMS}")
+    return served
+
+
+@contextmanager
+def tf32(on: bool):
+    import torch
+
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def card_vs_cpu_f32(device, priors) -> None:
+    """Phase 8a: cuDNN's f32 LSTM (GCRN's, [8, 301, 512]) and bidirectional
+    GRU (DB-AIAT's column pass, [640, 301, 32]) and each served prior's
+    forward on 2 x 1 s on the card against the same module on the CPU: with
+    TF32 off, within CARD_VS_CPU_F32; with TF32 on, printed (the larger
+    distance shows that the switch reaches cuDNN's RNNs)."""
+    import torch
+
+    from prior_diffuse_tpu_torch.models import layers
+
+    g = torch.Generator().manual_seed(50)
+    cases = [("LSTM(512, 512)", layers.LSTM(512, 512), torch.randn(BATCH, T_FRAMES, 512,
+                                                                    generator=g)),
+             ("bidirectional GRU(32, 64)", layers.GRU(32, 64, True),
+              torch.randn(BATCH * 80, T_FRAMES, 32, generator=g))]
+    cases += [(f"{name} forward", net, torch.randn(2, 101, 161, 2, generator=g))
+              for name, net in priors.items()]
+    for label, net, x in cases:
+        cpu = copy.deepcopy(net).cpu().eval()
+        card = copy.deepcopy(net).to(device).eval()
+        want = cpu(x)
+        errs = {}
+        for on in (False, True):
+            with tf32(on):
+                err, ref = max_err(card(x.to(device)).cpu(), want)
+            errs[on] = err / ref
+        print(f"{label} {tuple(x.shape)} on the card vs the CPU: max|err| / max|ref| "
+              f"{errs[False]:.3e} with TF32 off (bound {CARD_VS_CPU_F32:g}), {errs[True]:.3e} "
+              f"with TF32 on", flush=True)
+        if errs[False] > CARD_VS_CPU_F32:
+            fail(f"{label}: the card's float32 forward strays from the CPU's")
+
+
+def prior_exp(name: str):
+    """The experiment of the prior's yml (``conf/gcrn.yml`` or
+    ``conf/dbaiat.yml``), checked against its published batch."""
+    from prior_diffuse_tpu_torch.config import load_experiment
+
+    conf, batch = PRIOR_CONFS[name]
+    exp = load_experiment(os.path.join(ROOT, "conf", conf))
+    if (exp.model.name, exp.train.batch_size, exp.train.chunk_length) != (name, batch, LENGTH):
+        fail(f"conf/{conf}: {exp.model.name}, batch {exp.train.batch_size} x "
+             f"{exp.train.chunk_length}")
+    return exp
+
+
+def complex_trainer(device, name, net, root, corpus, tag=""):
+    """A ``ComplexTrainer`` of the prior's yml on the corpus, holding
+    ``net``'s weights."""
+    from prior_diffuse_tpu_torch.config import RunConfig
+    from prior_diffuse_tpu_torch.training.complex_trainer import ComplexTrainer
+
+    run = RunConfig(seed=7, trainer="ComplexTrainer", data_root=corpus,
+                    assets=os.path.join(root, f"assets_{name}{tag}"))
+    tr = ComplexTrainer(run, prior_exp(name), device=device)
+    tr.model.load_state_dict(net.state_dict())
+    return tr
+
+
+def complex_serving(device, card, name, tr) -> dict:
+    """Phase 8b: ``ComplexTrainer.enhance_batch`` on the batch of phase 3
+    through the kernels against the plain versions, launch counts K1 = 1,
+    K2 = 1, K3 = 0, CUDA-event ms, device ms, launches and top kernels;
+    then five requests through ``enhance_files``."""
+    import torch
+
+    from prior_diffuse_tpu_torch.serving.enhance import enhance_files
+
+    wav = speechlike(BATCH, LENGTH, 3)
+    wav_dev = torch.from_numpy(wav).to(device)
+    reset_counts()
+    out = tr.enhance_batch(wav)
+    torch.cuda.synchronize()
+    counts = expect_counts(f"ComplexTrainer.enhance_batch [{name}]",
+                           {"stft": 1, "istft": 1, "enc_stage": 0})
+    with plain_versions():
+        ref = tr.enhance_batch(wav)
+    torch.cuda.synchronize()
+    if out.shape != (BATCH, LENGTH) or out.dtype != torch.float32:
+        fail(f"ComplexTrainer.enhance_batch [{name}] returned {tuple(out.shape)} {out.dtype}")
+    err, refmax = max_err(out, ref)
+    print(f"ComplexTrainer.enhance_batch [{name}, f32] {tuple(out.shape)}: max|kernels - "
+          f"plain| {err:.3e} (bound {PATH_RTOL * refmax:.3e}, max|ref| {refmax:.3e})",
+          flush=True)
+    if err > PATH_RTOL * refmax:
+        fail(f"ComplexTrainer.enhance_batch [{name}] disagrees with its plain-version run")
+    batch = lambda: tr.enhance_batch(wav_dev)
+    ms = cuda_ms(batch, iters=10, warmup=2)
+    with plain_versions():
+        plain_ms = cuda_ms(batch, iters=3, warmup=1)
+    dev = device_ms(batch, calls=3)
+    top, launches = top_kernels(batch)
+    print(f"ComplexTrainer.enhance_batch [{name}, f32] batch {BATCH} x {LENGTH // SR} s: "
+          f"{ms:.3f} ms/batch, RTF {BATCH * LENGTH / SR / (ms / 1e3):.1f}x (plain versions "
+          f"{plain_ms:.3f} ms); device {fmt(dev)} ms, {launches} kernel launches a batch; "
+          f"top kernels by device ms per batch: " + "; ".join(
+              f"{k} {kms:.3f} ({n})" for k, kms, n in top) + f"; card {card}", flush=True)
+    lengths = [16000, 23456, 40000, 64000, 31234]
+    wavs = [0.1 * speechlike(1, n, 10 + i)[0] for i, n in enumerate(lengths)]
+    t0 = time.perf_counter()
+    outs = enhance_files(tr.server, wavs, torch.Generator(device=device).manual_seed(6))
+    wall = time.perf_counter() - t0
+    for w, o in zip(wavs, outs):
+        if o.shape != w.shape or not np.isfinite(o).all():
+            fail(f"enhance_files [{name}] returned {o.shape} for {w.shape} or non-finite values")
+    print(f"enhance_files [{name}, ComplexTrainer]: {len(wavs)} requests, lengths {lengths} "
+          f"-> ok ({wall * 1e3:.1f} ms wall incl. host)", flush=True)
+    return counts
+
+
+def prior_ddpm_phase(device, card, root, corpus, name, net, ddpm) -> dict:
+    """Phase 8c: the prior under ``ComplexDDPMTrainer``: its ``Enhancer``
+    on the batch of phase 3 (plain and ``--sigma``, K3 = 30), its
+    ``prior_only_server`` (K3 = 0), then the trainer of ``conf/diff.yml``
+    with ``model.name`` the prior: one joint step (``--sigma``) and one
+    ``evaluate()`` cv batch (K1 = 2, K2 = 2, K3 = 30)."""
+    import torch
+
+    from prior_diffuse_tpu_torch.config import RunConfig, load_experiment
+    from prior_diffuse_tpu_torch.serving.enhance import prior_only_server
+    from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
+    from prior_diffuse_tpu_torch.training.ddpm_trainer import ComplexDDPMTrainer
+
+    paths = run_main_path(device, net, ddpm, card, torch.float32)
+    server = prior_only_server(Enhancer(net, ddpm, mode_config("pirorgrad"), device=device))
+    reset_counts()
+    out = server.enhance_batch(speechlike(BATCH, LENGTH, 3))
+    torch.cuda.synchronize()
+    paths[f"prior_only_{name}"] = expect_counts(f"prior_only_server [{name}]",
+                                                {"stft": 1, "istft": 1, "enc_stage": 0})
+    if out.shape != (BATCH, LENGTH) or not bool(torch.isfinite(out).all()):
+        fail(f"prior_only_server [{name}]: {tuple(out.shape)} or non-finite values")
+
+    exp = load_experiment(os.path.join(ROOT, "conf", "diff.yml"))
+    exp = dataclasses.replace(exp, model=dataclasses.replace(exp.model, name=name))
+    run = RunConfig(seed=7, joint=True, sigma=True, data_root=corpus,
+                    assets=os.path.join(root, f"assets_ddpm_{name}"))
+    tr = ComplexDDPMTrainer(run, exp, device=device)
+    if type(tr.dis).__name__ != type(net).__name__:
+        fail(f"the DDPM trainer's prior is {type(tr.dis).__name__}")
+    batch = next(iter(tr.tr_loader))
+    batch = tr.put_batch(batch.noisy, batch.clean, batch.frame_nums)
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = train_losses(tr._train_step(*batch))
+    step_wall = (time.perf_counter() - t0) * 1e3
+    paths[f"train_step_ddpm_{name}"] = expect_counts(
+        f"a joint step [{name} prior]", {"stft": 2, "istft": 0, "enc_stage": 0})
+    if not finite(float(v) for v in losses):
+        fail(f"non-finite joint step [{name} prior]: {losses}")
+    n_cv = len(tr.cv_loader)
+    reset_counts()
+    t0 = time.perf_counter()
+    cv_loss = tr.evaluate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paths[f"evaluate_cv_batch_ddpm_{name}"] = expect_counts(
+        f"evaluate() [{name} prior] over {n_cv} cv batch(es)",
+        {"stft": 2 * n_cv, "istft": 2 * n_cv, "enc_stage": 30 * n_cv})
+    if not finite([cv_loss]):
+        fail(f"non-finite evaluation [{name} prior]")
+    print(f"ComplexDDPMTrainer [{name} prior, joint, sigma]: first step "
+          f"{step_wall:.1f} ms wall, losses {[round(float(v), 5) for v in losses]}; "
+          f"evaluate() cv loss {cv_loss:.5f}, {wall / n_cv * 1e3:.1f} ms wall per cv batch "
+          f"incl. host scoring; card {card}", flush=True)
+    return paths
+
+
+def complex_train_phase(device, card, root, corpus, name, net) -> dict:
+    """Phase 8d: ``ComplexTrainer`` of the prior's yml at its width: the K1
+    step against the plain-STFT step (the wrong window rejected), 5 timed
+    steps, ``evaluate()``; returns the launch counts of a step and of the
+    evaluation."""
+    import torch
+
+    tr = complex_trainer(device, name, net, root, corpus, tag="_train")
+    batches = [tr.put_batch(b.noisy, b.clean, b.frame_nums) for b in tr.tr_loader]
+    rows = PRIOR_CONFS[name][1]
+    if len(batches) != CORPUS[0] // rows or batches[0][0].shape != (rows, LENGTH):
+        fail(f"{len(batches)} train batches of {tuple(batches[0][0].shape)}")
+    step_through_k1_and_plain(tr, batches[0])
+    counts = {f"train_step_complex_{name}": timed_steps(tr, batches, card, iters=5,
+                                                        label=f"ComplexTrainer, {name}")}
+    n_cv = len(tr.cv_loader)
+    reset_counts()
+    t0 = time.perf_counter()
+    cv_loss = tr.evaluate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts[f"evaluate_cv_batch_complex_{name}"] = expect_counts(
+        f"ComplexTrainer.evaluate() [{name}] over {n_cv} cv batch(es)",
+        {"stft": 2 * n_cv, "istft": 2 * n_cv, "enc_stage": 0})
+    ev = [r for r in metric_records(tr.run.log_dir) if "test_loss" in r][-1]
+    scores = [f"test_mean_{m}" for m in ("csig", "cbak", "covl", "pesq", "ssnr", "stoi")]
+    if not finite([cv_loss, *(ev[k] for k in scores)]):
+        fail(f"non-finite evaluation [{name}]: {ev}")
+    print(f"ComplexTrainer.evaluate() [{name}]: cv loss {cv_loss:.5f}, " + ", ".join(
+        f"{k[10:]} {ev[k]:.3f}" for k in scores) + f"; {wall / n_cv * 1e3:.1f} ms wall per "
+        f"cv batch incl. host scoring; card {card}", flush=True)
+    return counts
+
+
+def complex_cli_phase(root, corpus, name, card) -> dict:
+    """Phase 8e: ``cli.main --trainer ComplexTrainer`` on a copy of the
+    prior's yml for one epoch, then ``--generate``; returns the launch
+    counts of both runs."""
+    import torch
+
+    from prior_diffuse_tpu_torch import cli
+    from prior_diffuse_tpu_torch.data.wavio import read_wav
+
+    conf, rows = PRIOR_CONFS[name]
+    with open(os.path.join(ROOT, "conf", conf)) as f:
+        text = f.read()
+    epochs = next((line for line in text.splitlines() if "n_epochs:" in line), None)
+    if epochs is None:
+        fail(f"conf/{conf} has no n_epochs line")
+    path = os.path.join(root, f"one_epoch_{conf}")
+    with open(path, "w") as f:
+        f.write(text.replace(epochs, "  n_epochs: 1"))
+    assets = os.path.join(root, f"cli_{name}")
+    args = ["--trainer", "ComplexTrainer", "--config", path, "--data-root", corpus,
+            "--assets", assets, "--doc", name, "--seed", "11"]
+    n_steps, n_cv = CORPUS[0] // rows, CORPUS[1] // rows
+    print(f"cli.main {' '.join(args)}", flush=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train = expect_counts(f"cli.main --trainer ComplexTrainer [{name}, 1 epoch]",
+                          {"stft": 2 * (n_steps + n_cv), "istft": 2 * n_cv, "enc_stage": 0})
+    recs = metric_records(os.path.join(assets, "log", name))
+    steps = [r for r in recs if "train_batch_loss" in r]
+    if len(steps) != n_steps or not any("test_loss" in r for r in recs) or not finite(
+            r["train_batch_loss"] for r in steps):
+        fail(f"cli log [{name}]: {len(steps)} train records")
+    for ckpt in ("epochs/0.pt", "best.pt"):
+        if not os.path.exists(os.path.join(assets, "checkpoint", name, ckpt)):
+            fail(f"cli [{name}]: no checkpoint {ckpt}")
+    print(f"cli.main [{name}]: {n_steps} steps and an evaluation in {wall:.1f} s wall; step "
+          f"{np.median([r['step_time_ms'] for r in steps]):.3f} ms median on the host clock; "
+          f"card {card}", flush=True)
+    reset_counts()
+    cli.main(args + ["--generate"])
+    torch.cuda.synchronize()
+    n_gen = -(-CORPUS[1] // rows)
+    generate = expect_counts(f"cli.main --trainer ComplexTrainer --generate [{name}]",
+                             {"stft": n_gen, "istft": n_gen, "enc_stage": 0})
+    ins = sorted(glob.glob(os.path.join(corpus, "noisy_testset_wav", "*.wav")))
+    outs = sorted(glob.glob(os.path.join(assets, "wav", name, "*.wav")))
+    if [os.path.basename(p) for p in outs] != [os.path.basename(p) for p in ins]:
+        fail(f"--generate [{name}] wrote {len(outs)} wavs for {len(ins)} inputs")
+    for i, o in zip(ins, outs):
+        x, y = read_wav(i)[0], read_wav(o)[0]
+        if y.shape != x.shape or not np.isfinite(y).all() or not np.abs(y).max() > 0:
+            fail(f"--generate [{name}]: {o} has {y.shape} for {x.shape}, or no finite signal")
+    print(f"cli.main --generate [{name}]: {len(outs)} wavs, finite, at the inputs' lengths",
+          flush=True)
+    return {f"cli_train_complex_{name}": train, f"cli_generate_complex_{name}": generate}
+
+
+def prior_phase(device, card, root, corpus, ddpm) -> dict:
+    """Phase 8; returns the launch counts of its paths."""
+    priors = prior_nets(device)
+    card_vs_cpu_f32(device, priors)
+    paths = {}
+    for name, net in priors.items():
+        tr = complex_trainer(device, name, net, root, corpus)
+        paths[f"serve_batch_complex_{name}"] = complex_serving(device, card, name, tr)
+        paths.update(prior_ddpm_phase(device, card, root, corpus, name, net, ddpm))
+        paths.update(complex_train_phase(device, card, root, corpus, name, net))
+        paths.update(complex_cli_phase(root, corpus, name, card))
+    return paths
+
+
 def main() -> None:
     import torch
 
@@ -1290,22 +1655,30 @@ def main() -> None:
 
     from prior_diffuse_tpu_torch.models.diffunet import Nocon
 
+    t0 = time.perf_counter()
+    mark = lambda phase: print(f"[{time.perf_counter() - t0:.1f} s] phase {phase}", flush=True)
     nets = seeded_nets(0, device)
     denoisers = {"deltamu": seeded_nets(1, device, (Nocon,))[0], "conditional": nets[1]}
+    mark(2)
     rows = check_kernels(device, nets)
     check_edge_shapes(device, nets)
     paths = {}
+    mark(3)
     for dtype in (torch.float32, torch.bfloat16):
         paths.update(run_main_path(device, *nets, card, dtype))
+    mark(4)
     serve_requests(device, nets, torch.float32)
     serve_requests(device, nets, torch.bfloat16)
     paths.update(serve_long(device, nets, card))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        mark(5)
         corpus = write_train_corpus(root)
         paths["train_step"], paths["evaluate_cv_batch"], train_rows = train_phase(
             device, card, root, corpus)
+        mark(6)
         paths["cli_train"], paths["cli_generate"] = cli_phase(root, corpus, card)
-        for mode, ddpm in denoisers.items():  # phase 7
+        mark(7)
+        for mode, ddpm in denoisers.items():
             for dtype in (torch.float32, torch.bfloat16):
                 paths.update(run_main_path(device, nets[0], ddpm, card, dtype, mode,
                                            (False, True) if mode == "deltamu" else (False,)))
@@ -1313,6 +1686,9 @@ def main() -> None:
         for mode in MODES:
             paths[f"train_step_{mode}"], paths[f"evaluate_cv_batch_{mode}"] = \
                 train_mode_phase(device, card, root, corpus, mode)
+        mark(8)
+        paths.update(prior_phase(device, card, root, corpus, nets[1]))
+        mark("8 done")
 
     # (route, source, replaces, the path whose run "launches" counts)
     meta = {

@@ -4,13 +4,15 @@ The counterpart of ``prior_diffuse_tpu/cli.py`` (reference ``main.py:20-41``):
 
     python -m prior_diffuse_tpu_torch.cli --trainer ComplexDDPMTrainer \\
         --config conf/diff.yml [--joint] [--sigma] [--retrain] [--eval] [--generate]
+    python -m prior_diffuse_tpu_torch.cli --trainer ComplexTrainer \\
+        --config conf/gcrn.yml [--retrain] [--generate]     (or conf/dbaiat.yml)
 
 with assets under ``<assets>/{log,checkpoint,wav}/<doc>`` and data under
 ``--data-root`` (``{noisy,clean}_{trainset,testset}_wav``).  ``--device``
 names the torch device (``cuda`` by default; there is no fallback).  The
 flags of the JAX CLI that the port does not run yet raise
-``NotImplementedError``: other trainers, ``--draw``, ``--profile-steps``
-and ``--wandb``.
+``NotImplementedError``: ``--trainer MagTrainer``, ``--draw``,
+``--profile-steps`` and ``--wandb``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import logging
 from prior_diffuse_tpu_torch.config import RunConfig, load_experiment
 from prior_diffuse_tpu_torch.utils.logging import MetricsLogger, setup_logging
 
-TRAINERS = ("ComplexDDPMTrainer",)
+TRAINERS = ("ComplexDDPMTrainer", "ComplexTrainer")
 
 
 def parse_args(argv=None):
@@ -62,9 +64,11 @@ def parse_args(argv=None):
 
 def main(argv=None):
     run, use_wandb, device = parse_args(argv)
+    if run.trainer == "MagTrainer":
+        raise NotImplementedError("trainer 'MagTrainer' is not ported yet "
+                                  "(ROADMAP Queue 1 item 10b)")
     if run.trainer not in TRAINERS:
-        raise NotImplementedError(
-            f"trainer {run.trainer!r} is not ported yet (ROADMAP Queue 1 item 10)")
+        raise KeyError(f"unknown trainer {run.trainer!r}; one of: {', '.join(TRAINERS)}")
     if run.draw:
         raise NotImplementedError("--draw (draw_audio, viz.py) is not ported yet "
                                   "(ROADMAP Queue 1 item 12)")
@@ -73,14 +77,18 @@ def main(argv=None):
                                   "(ROADMAP Queue 1 item 14)")
     if use_wandb:
         raise NotImplementedError("--wandb is not ported yet (ROADMAP Queue 1 item 12)")
-    from prior_diffuse_tpu_torch.training.ddpm_trainer import ComplexDDPMTrainer
+    if run.trainer == "ComplexTrainer":
+        from prior_diffuse_tpu_torch.training.complex_trainer import ComplexTrainer as trainer_cls
+    else:
+        from prior_diffuse_tpu_torch.training.ddpm_trainer import (
+            ComplexDDPMTrainer as trainer_cls)
 
     exp = load_experiment(run.config)
     logging.info("Run = %s", dataclasses.asdict(run))
     logging.info("Experiment = %s", dataclasses.asdict(exp))
     metrics = MetricsLogger(run.log_dir)
     try:
-        trainer = ComplexDDPMTrainer(run, exp, device=device, metrics_logger=metrics)
+        trainer = trainer_cls(run, exp, device=device, metrics_logger=metrics)
         if run.generate:
             trainer.generate_wav(load_pre_train=True)
         else:

@@ -13,7 +13,17 @@ the same in both packages; the conventions that differ
 * PReLU ``alpha`` <-> ``weight``;
 * BatchNorm ``BatchNorm_0/{scale, bias}`` and batch stats ``{mean, var}``
   <-> ``weight, bias, running_mean, running_var`` (``num_batches_tracked``
-  has no flax counterpart and is set to 0, or to a given count).
+  has no flax counterpart and is set to 0, or to a given count);
+* LayerNorm ``LayerNorm_0/{scale, bias}`` <-> ``weight, bias``; the
+  ``scale`` of any other module without a kernel (``LayerNormOverF``,
+  ``GroupNorm1``) <-> ``weight``;
+* LSTM ``w_ih [in, 4h]``, ``w_hh``, ``b_ih``, ``b_hh`` <-> ``weight_ih_l0
+  [4h, in]`` (transposed), ``weight_hh_l0``, ``bias_ih_l0``, ``bias_hh_l0``;
+  GRU the same with ``_fwd`` <-> ``_l0`` and ``_bwd`` <-> ``_l0_reverse``;
+* MultiHeadAttention ``w_in [d, 3d]``, ``b_in``, ``w_out``, ``b_out`` <->
+  ``in_proj_weight [3d, d]`` (transposed), ``in_proj_bias``,
+  ``out_proj_weight`` (transposed), ``out_proj_bias``;
+* bare parameters (``k1``, ``k2``, ``k3``) keep their names.
 
 :func:`payload_from_jax` carries a whole JAX trainer checkpoint (both
 nets, both optax states, step and plateau state) into the port's
@@ -29,8 +39,28 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from prior_diffuse_tpu_torch.models.layers import MultiHeadAttention
+
 _BN = "BatchNorm_0"
+_LN = "LayerNorm_0"
 _STATS = {"mean": "running_mean", "var": "running_var"}
+_KERNELS = (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)
+
+
+def _renamed(module: nn.Module) -> Dict[str, Tuple[str, bool]]:
+    """flax leaf -> (torch parameter, transposed) where the names differ."""
+    if isinstance(module, nn.LSTM):
+        return {"w_ih": ("weight_ih_l0", True), "w_hh": ("weight_hh_l0", True),
+                "b_ih": ("bias_ih_l0", False), "b_hh": ("bias_hh_l0", False)}
+    if isinstance(module, nn.GRU):
+        return {f"{w}_{d}": (f"{t}_l0{sfx}", w.startswith("w"))
+                for d, sfx in (("fwd", ""), ("bwd", "_reverse"))
+                for w, t in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+                             ("b_ih", "bias_ih"), ("b_hh", "bias_hh"))}
+    if isinstance(module, MultiHeadAttention):
+        return {"w_in": ("in_proj_weight", True), "b_in": ("in_proj_bias", False),
+                "w_out": ("out_proj_weight", True), "b_out": ("out_proj_bias", False)}
+    return {}
 
 
 def _flatten(tree, prefix=()):
@@ -72,11 +102,15 @@ def flax_to_state_dict(model: nn.Module, variables,
     out = {}
     for collection in ("params", "batch_stats"):
         for path, value in _flatten(variables.get(collection, {})):
-            mod_path = [p for p in path[:-1] if p != _BN]
+            mod_path = [p for p in path[:-1] if p not in (_BN, _LN)]
             module = model.get_submodule(".".join(mod_path))
             leaf = path[-1]
+            renamed = _renamed(module)
             if collection == "batch_stats":
                 name = _STATS[leaf]
+            elif leaf in renamed:
+                name, transposed = renamed[leaf]
+                value = value.T if transposed else value
             elif leaf == "kernel":
                 name, value = "weight", _kernel_to_torch(module, value)
             elif leaf in ("scale", "alpha"):
@@ -104,9 +138,16 @@ def flax_key(model: nn.Module, key: str) -> Optional[Tuple[str, Tuple[str, ...]]
         if name in _STATS.values():
             return "batch_stats", (*mod_path, _BN, "mean" if name == "running_mean" else "var")
         return "params", (*mod_path, _BN, "scale" if name == "weight" else "bias")
+    if isinstance(module, nn.LayerNorm):
+        return "params", (*mod_path, _LN, "scale" if name == "weight" else "bias")
     if isinstance(module, nn.PReLU):
         return "params", (*mod_path, "alpha")
-    return "params", (*mod_path, "kernel" if name == "weight" else name)
+    for leaf, (torch_name, _) in _renamed(module).items():
+        if name == torch_name:
+            return "params", (*mod_path, leaf)
+    if name == "weight":
+        return "params", (*mod_path, "kernel" if isinstance(module, _KERNELS) else "scale")
+    return "params", (*mod_path, name)
 
 
 def state_dict_to_flax(model: nn.Module, state_dict) -> dict:
@@ -120,8 +161,11 @@ def state_dict_to_flax(model: nn.Module, state_dict) -> dict:
             continue
         collection, path = found
         value = tensor.detach().cpu().numpy()
+        module = model.get_submodule(key.rpartition(".")[0])
         if path[-1] == "kernel":
-            value = _kernel_to_flax(model.get_submodule(key.rsplit(".", 1)[0]), value)
+            value = _kernel_to_flax(module, value)
+        elif _renamed(module).get(path[-1], (None, False))[1]:
+            value = value.T
         node = tree[collection]
         for p in path[:-1]:
             node = node.setdefault(p, {})

@@ -1,14 +1,22 @@
-"""Building blocks of the DiffUNet family that ``torch.nn`` lacks.
+"""Building blocks of the model zoo that ``torch.nn`` lacks.
 
 The counterparts of ``prior_diffuse_tpu/models/layers.py``.  Its PReLU,
 conv1d/conv2d and ConvTranspose2d are ``nn.PReLU``, ``nn.Conv1d/2d`` and
 ``nn.ConvTranspose2d`` here (``convert.py`` maps the parameters); its
 BatchNorm is :class:`BatchNorm1d` / :class:`BatchNorm2d`, which keep
-flax's train-mode statistics.  Inside the models tensors are NCHW
-``[B, C, T, F]``.
+flax's train-mode statistics.  Its LayerNorm is ``nn.LayerNorm``: flax
+takes the variance in one pass (``E[x^2] - E[x]^2``) and torch in two, but
+copying the one-pass formula does not copy flax's rounding, and the
+two-pass variance is the closer to flax's result as to the exact one
+(``tests/test_torch_priors.py::test_layer_matches_flax``, ROADMAP Queue
+3).  Its LSTM and GRU are ``nn.LSTM`` and ``nn.GRU`` (cuDNN on the card),
+and its MultiHeadAttention two products and a softmax.  Inside the convolutional models tensors are NCHW
+``[B, C, T, F]``; the recurrent and attention layers take ``[N, L, d]``.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -108,3 +116,55 @@ def pad_time_causal(x: torch.Tensor, amount: int = 1) -> torch.Tensor:
 def chomp_time_end(x: torch.Tensor, amount: int = 1) -> torch.Tensor:
     """Drop ``amount`` frames from the end of the time axis of NCHW."""
     return x[:, :, :-amount] if amount else x
+
+
+class LSTM(nn.LSTM):
+    """One-layer unidirectional LSTM, ``[N, L, in] -> [N, L, hidden]``.
+    torch's gate order (i, f, g, o) and its two biases are the JAX
+    layer's; its ``w_ih [in, 4h]`` is ``weight_ih_l0`` transposed."""
+
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__(in_dim, hidden, batch_first=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
+        return super().forward(x)[0]
+
+
+class GRU(nn.GRU):
+    """One-layer GRU, ``[N, L, in] -> [N, L, hidden]`` (``2 * hidden``
+    bidirectional).  torch's gates (r, z, n, with ``b_hn`` inside the reset
+    gate) are the JAX layer's; its reverse direction runs the time-flipped
+    sequence and flips the result back, as JAX's ``bwd`` does."""
+
+    def __init__(self, in_dim: int, hidden: int, bidirectional: bool = False):
+        super().__init__(in_dim, hidden, batch_first=True, bidirectional=bidirectional)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
+        return super().forward(x)[0]
+
+
+class MultiHeadAttention(nn.Module):
+    """Self-attention shaped as ``nn.MultiheadAttention``: a packed q, k, v
+    projection ``in_proj_weight [3d, d]`` (JAX's ``w_in`` transposed),
+    ``q k^T / sqrt(d / heads)``, a softmax over the keys and the output
+    projection.  ``[N, L, d] -> [N, L, d]``."""
+
+    def __init__(self, d_model: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        d = d_model
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d, d))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d))
+        self.out_proj_weight = nn.Parameter(torch.empty(d, d))
+        self.out_proj_bias = nn.Parameter(torch.zeros(d))
+        nn.init.xavier_uniform_(self.in_proj_weight)
+        nn.init.uniform_(self.out_proj_weight, -1.0 / math.sqrt(d), 1.0 / math.sqrt(d))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, length, d = x.shape
+        nh = self.num_heads
+        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        q, k, v = qkv.view(n, length, 3, nh, d // nh).permute(2, 0, 3, 1, 4)
+        attn = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(d // nh), dim=-1)
+        out = (attn @ v).transpose(1, 2).reshape(n, length, d)
+        return F.linear(out, self.out_proj_weight, self.out_proj_bias)

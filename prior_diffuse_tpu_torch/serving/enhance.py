@@ -2,7 +2,8 @@
 
 The counterpart of ``prior_diffuse_tpu/serving/enhance.py``
 (``enhance_files``, ``enhance_waveform``, ``enhance_directory``,
-``prior_only_server``).  Files
+``prior_only_server``), and :class:`PriorServer`, the serving path of a
+prior alone.  Files
 are length-sorted into batches of ``batch_size`` rows; a batch is padded
 to a rung of a
 geometric (x1.5) ladder of ``bucket_samples`` multiples and its row count
@@ -23,9 +24,11 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from prior_diffuse_tpu_torch.config import ExperimentConfig
 from prior_diffuse_tpu_torch.data.wavio import read_wav, write_wav
+from prior_diffuse_tpu_torch.models.diffunet import DiffUNet
 from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
-from prior_diffuse_tpu_torch.serving.enhancer import weights_key
+from prior_diffuse_tpu_torch.serving.enhancer import serving_device, weights_key
 from prior_diffuse_tpu_torch.signal.compress import decompress_spec
 from prior_diffuse_tpu_torch.signal.normalize import rms_scale
 from prior_diffuse_tpu_torch.training.base import spec_features
@@ -54,25 +57,39 @@ def _buckets(lengths: Sequence[int], batch_size: int, bucket_samples: int):
                _ladder_pad(max(lengths[j] for j in idx), bucket_samples))
 
 
-class _PriorOnly:
-    """:func:`prior_only_server`'s server."""
+class PriorServer:
+    """Serve a prior alone: ``wav [B, L]`` -> STFT (K1) -> compression ->
+    the prior's module forward in ``dtype`` -> decompress -> ISTFT (K2) ->
+    ``[B, L]``, no K3 and no residual DDPM.  It is
+    ``ComplexTrainer``'s serving path (JAX ``complex_trainer.py:193-210``)
+    and :func:`prior_only_server`'s.  ``net`` is any prior of the model
+    table (``[B, T, 161, 2] -> [B, T, 161, 2]``); in a dtype other than
+    float32 it is an inference copy with every parameter and BN statistic
+    cast, as the JAX package casts its variables, which the port does for
+    the ``DiffUNet`` only."""
 
-    def __init__(self, enhancer, dtype: torch.dtype):
-        self.enhancer = enhancer
+    def __init__(self, net, cfg: ExperimentConfig, device="cuda",
+                 dtype: torch.dtype = torch.float32):
+        if dtype != torch.float32 and not isinstance(net, DiffUNet):
+            raise NotImplementedError(
+                f"{type(net).__name__} in {dtype}: the port serves a prior other than "
+                "the DiffUNet in float32 only (ROADMAP Queue 1 item 18)")
+        self.device = serving_device(device)
+        self.module = net.to(self.device)
+        self.cfg = cfg
         self.dtype = dtype
-        self.cfg = enhancer.cfg
         self._net, self._key = None, None
 
     def net(self):
-        """The enhancer's ``DiffUNet`` in the server's dtype: the module
-        itself in float32, else an inference copy with every parameter and
-        BN statistic cast, made again when a weight changed."""
-        dis = self.enhancer.dis.eval()
+        """The prior in the server's dtype: the module itself in float32,
+        else an inference copy with every parameter and BN statistic cast,
+        made again when a weight changed."""
+        net = self.module.eval()
         if self.dtype == torch.float32:
-            return dis
-        key = weights_key(dis)
+            return net
+        key = weights_key(net)
         if key != self._key:
-            self._net, self._key = copy.deepcopy(dis).to(self.dtype), key
+            self._net, self._key = copy.deepcopy(net).to(self.dtype), key
         return self._net
 
     @torch.no_grad()
@@ -83,26 +100,24 @@ class _PriorOnly:
 
     @torch.no_grad()
     def enhance_batch(self, wav, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``wav [B, L]`` -> ``[B, L]``: STFT (K1), the prior in the
-        server's dtype, decompress, ISTFT (K2).  Draws nothing: the
+        """``wav [B, L]`` -> ``[B, L]`` float32.  Draws nothing: the
         generator is taken and not used."""
-        wav = torch.as_tensor(wav, dtype=torch.float32).to(self.enhancer.device).contiguous()
-        x_init = self.prior(spec_features(wav, self.cfg.train))
-        spec = decompress_spec(x_init.float(), self.cfg.train.feat_type)
+        wav = torch.as_tensor(wav, dtype=torch.float32).to(self.device).contiguous()
+        est = self.prior(spec_features(wav, self.cfg.train))
+        spec = decompress_spec(est.float(), self.cfg.train.feat_type)
         return kstft.istft(spec.contiguous(), wav.shape[-1])
 
 
-def prior_only_server(enhancer, dtype: Optional[torch.dtype] = None) -> _PriorOnly:
-    """A server that runs only the ``DiffUNet`` prior of ``enhancer`` (its
-    ``x_init``, no residual DDPM) through the same wav -> STFT -> ISTFT ->
-    wav path, with the prior in ``dtype`` (default the enhancer's).  As
-    the JAX package's, the prior is the module's own forward on the
-    parameters and BN statistics cast to ``dtype``.  It has
+def prior_only_server(enhancer, dtype: Optional[torch.dtype] = None) -> PriorServer:
+    """A :class:`PriorServer` of the prior of ``enhancer`` (its ``x_init``,
+    no residual DDPM) through the same wav -> STFT -> ISTFT -> wav path,
+    with the prior in ``dtype`` (default the enhancer's).  As the JAX
+    package's, the prior is the module's own forward.  It has
     ``enhance_batch`` and ``cfg``, so :func:`enhance_files` and
     ``streaming.enhance_long`` take it where they take an ``Enhancer``.
     Chain-vs-prior comparisons on identical weights isolate the residual
     DDPM's contribution."""
-    return _PriorOnly(enhancer, dtype or enhancer.dtype)
+    return PriorServer(enhancer.dis, enhancer.cfg, enhancer.device, dtype or enhancer.dtype)
 
 
 def enhance_files(enhancer, wavs: List[np.ndarray], generator: torch.Generator,

@@ -6,7 +6,10 @@ same order, without a trainer, with the model compute in ``dtype``
 (``serve_dtype``: float32, or bfloat16, the JAX package's fast path):
 
 1. STFT 320/160 (K1, float32) and magnitude compression, then cast;
-2. one ``DiffUNet`` forward gives ``x_init``, divided by ``c``;
+2. one prior forward gives ``x_init``, divided by ``c``: the packed
+   ``DiffUNet`` (below), or any other prior of the model table (GCRN, the
+   DB-AIAT variants) through its module forward, unpacked, as the JAX
+   package serves it (``ddpm_trainer.py:599-612``);
 3. with ``sigma``, the PriorGrad mask of ``x_init``;
 4. the reverse chain of denoiser forwards (6 on the fast schedule) in
    ``dtype``, in the config's diffusion mode (``diffusion_mode``):
@@ -18,8 +21,9 @@ same order, without a trainer, with the model compute in ``dtype``
 5. back to float32, multiply by ``c``, decompress, ISTFT (K2, float32) to
    the input length.
 
-The forwards are ``models/fused_forward.py::fused_unet_forward``: every
-encoder stage of the 7 forwards is K3 (``enc_stage`` in float32,
+The UNet forwards are ``models/fused_forward.py::fused_unet_forward``:
+every encoder stage of the 7 forwards (6 with another prior) is K3
+(``enc_stage`` in float32,
 ``enc_stage_bf16`` in bfloat16), and the decoders are the two ``Decoder``
 modules in float32 and the block-diagonal dual chain in bfloat16, the
 routes ``_resolve_fused`` picks for an empty environment.  Operands are
@@ -40,6 +44,7 @@ from prior_diffuse_tpu_torch.diffusion.qsample import sigma_mask
 from prior_diffuse_tpu_torch.diffusion.sampler import (diffusion_mode, is_noiseless,
                                                        reverse_sample, rounded)
 from prior_diffuse_tpu_torch.diffusion.schedule import inference_schedule
+from prior_diffuse_tpu_torch.models.diffunet import DiffUNet
 from prior_diffuse_tpu_torch.models.fused_forward import fused_unet_forward, pack_unet
 from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
 from prior_diffuse_tpu_torch.signal.compress import decompress_spec
@@ -54,11 +59,27 @@ def weights_key(*modules) -> tuple:
                  for m in modules for t in [*m.parameters(), *m.buffers()])
 
 
+def serving_device(device) -> torch.device:
+    """``device`` for a server: the card unless the caller asks for
+    ``"cpu"``, and without a card that default raises.  It also turns TF32
+    off: f32 means f32.  cuDNN runs float32 convolutions and RNNs in TF32
+    (about three significant digits) by default, while the JAX reference
+    computes them in f32 and its DFT at HIGHEST precision."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port serves on the card unless "
+                           "device='cpu' is passed")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return device
+
+
 class Enhancer:
-    """Serve a ``DiffUNet`` prior and a DDPM denoiser (``DiffUNet1``, or
-    ``Nocon`` in deltamu mode) on ``device`` in ``dtype``; ``sigma`` turns
-    on the PriorGrad mask.  ``device`` is the card unless the caller asks
-    for ``"cpu"``; without a card that default raises."""
+    """Serve a prior (the ``DiffUNet``, or in float32 any prior of the
+    model table) and a DDPM denoiser (``DiffUNet1``, or ``Nocon`` in
+    deltamu mode) on ``device`` in ``dtype``; ``sigma`` turns on the
+    PriorGrad mask.  ``device`` is the card unless the caller asks for
+    ``"cpu"``; without a card that default raises."""
 
     def __init__(self, dis, ddpm, cfg: ExperimentConfig = ExperimentConfig(),
                  device="cuda", sigma: bool = False, dtype: torch.dtype = torch.float32):
@@ -68,15 +89,12 @@ class Enhancer:
             raise ValueError("the STFT kernels implement the 320/160 framing only")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"the enhancer serves float32 or bfloat16, not {dtype}")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: the enhancer runs on the card unless "
-                               "device='cpu' is passed")
-        # f32 means f32: cuDNN runs float32 convolutions in TF32 (about
-        # three significant digits) by default, while the JAX reference
-        # computes its convolutions in f32 and its DFT at HIGHEST precision.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        if dtype != torch.float32 and not isinstance(dis, DiffUNet):
+            # JAX casts such a prior's variables and promotes op by op
+            raise NotImplementedError(
+                f"a {type(dis).__name__} prior in {dtype}: the port serves a prior other "
+                "than the DiffUNet in float32 only (ROADMAP Queue 1 item 18)")
+        self.device = serving_device(device)
         self.cfg = cfg
         self.sigma = sigma
         self.dtype = dtype
@@ -89,12 +107,14 @@ class Enhancer:
     def packs(self):
         """``(prior, denoiser)`` operands of :func:`fused_unet_forward` in
         the enhancer's dtype, repacked when a weight changed
-        (:func:`weights_key`).  The decoders are dual in every dtype but
-        float32."""
+        (:func:`weights_key`); the prior's is None unless it is a
+        ``DiffUNet``.  The decoders are dual in every dtype but float32."""
         key = weights_key(self.dis, self.ddpm)
         if key != self._pack_key:
-            self._packs = tuple(pack_unet(m, self.dtype, self.dtype != torch.float32)
-                                for m in (self.dis, self.ddpm))
+            dual = self.dtype != torch.float32
+            self._packs = (pack_unet(self.dis, self.dtype, dual)
+                           if isinstance(self.dis, DiffUNet) else None,
+                           pack_unet(self.ddpm, self.dtype, dual))
             self._pack_key = key
         return self._packs
 
@@ -128,7 +148,9 @@ class Enhancer:
         self.ddpm.eval()
         pack_dis, pack_ddpm = self.packs()
         feat = feat.to(dt)
-        x_init = fused_unet_forward(pack_dis, feat) / c
+        # a DiffUNet through its packed forward (K3), any other prior unpacked
+        x_init = (self.dis(feat) if pack_dis is None
+                  else fused_unet_forward(pack_dis, feat)) / c
         sig = sigma_mask(x_init) if self.sigma else None
         cond = self.conditioner(feat, c, x_init)
 

@@ -1,7 +1,9 @@
 """ComplexDDPMTrainer — the joint prior + residual DDPM trainer.
 
 The counterpart of ``prior_diffuse_tpu/training/ddpm_trainer.py`` on one
-device, in float32, in the three diffusion modes (``pirorgrad`` and
+device, in float32, with any prior of the model table (``model.name``:
+the ``DiffUNet``, ``GCRN`` or a DB-AIAT variant; JAX ``:148-155``), in the
+three diffusion modes (``pirorgrad`` and
 ``conditional`` with the ``DiffUNet1`` denoiser, ``deltamu`` with the
 unconditional ``Nocon``), with the ``cond_noisy``, ``train_t_fast``,
 ``predict="x0"`` and ``x0_leak_drop`` extensions.  ``_train_step`` follows the JAX ``_train_step_impl``
@@ -21,7 +23,9 @@ line for line:
 The train forwards and backward are plain PyTorch (cuDNN convolutions,
 autograd), as the JAX package leaves them to XLA.  Evaluation and
 ``--generate`` run the serving path (``serving.enhancer.Enhancer``): K3
-on packed encoder operands in all 7 forwards of a batch, K2 in scoring.
+on packed encoder operands in all 7 forwards of a batch (in the 6 DDPM
+forwards with a prior other than the ``DiffUNet``, which runs unpacked,
+JAX's ``_dis_apply``), K2 in scoring.
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ from prior_diffuse_tpu_torch.diffusion.schedule import inference_schedule
 from prior_diffuse_tpu_torch.losses import (LOSSES, com_mse_loss, com_mse_sigma_loss,
                                              frame_mask)
 from prior_diffuse_tpu_torch.metrics.compare import compare_complex
-from prior_diffuse_tpu_torch.models.diffunet import DiffUNet, DiffUNet1, Nocon
+from prior_diffuse_tpu_torch.models import model_class
+from prior_diffuse_tpu_torch.models.diffunet import DiffUNet1, Nocon
 from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
 from prior_diffuse_tpu_torch.training.base import (TrainerBase, grad_groups,
                                                    group_grad_norms, spec_features)
@@ -48,17 +53,19 @@ from prior_diffuse_tpu_torch.training.optim import get_lr, set_lr, torch_adam
 from prior_diffuse_tpu_torch.utils.logging import MetricsLogger
 
 
-def seeded_nets(seed: int, num_steps: int, cond_channels: int, mode: str = "pirorgrad"):
-    """The ``DiffUNet`` prior and the mode's denoiser (``Nocon`` in
-    deltamu, else ``DiffUNet1``: the mode picks the net, not the config's
-    name, JAX ``ddpm_trainer.py:156-160``) with torch's default
-    initialisation (the reference's own), drawn from ``seed`` without
-    touching the caller's global random state."""
+def seeded_nets(seed: int, num_steps: int, cond_channels: int, mode: str = "pirorgrad",
+                prior: str = "DiffUNet"):
+    """The prior named ``prior`` (the model table's names) and the mode's
+    denoiser (``Nocon`` in deltamu, else ``DiffUNet1``: the mode picks the
+    net, not the config's name, JAX ``ddpm_trainer.py:156-160``) with
+    torch's default initialisation (the reference's own), drawn from
+    ``seed`` without touching the caller's global random state."""
+    prior_cls = model_class(prior)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         ddpm = (Nocon(num_steps) if mode == "deltamu"
                 else DiffUNet1(num_steps, cond_channels=cond_channels))
-        return DiffUNet(), ddpm
+        return prior_cls(), ddpm
 
 
 class ComplexDDPMTrainer(TrainerBase):
@@ -75,10 +82,7 @@ class ComplexDDPMTrainer(TrainerBase):
             raise NotImplementedError(
                 f"compute_dtype {exp.train.compute_dtype!r}: the port trains in "
                 "float32 only; bf16 training is ROADMAP Queue 1 item 16")
-        if exp.model.name != "DiffUNet":
-            raise NotImplementedError(
-                f"prior {exp.model.name!r}: the port has the DiffUNet prior only "
-                "(other priors are ROADMAP Queue 1 item 10)")
+        model_class(exp.model.name)  # an unknown or unported prior raises here
         self.x0_leak_drop = float(diff.x0_leak_drop)
         if self.x0_leak_drop and diff.predict != "x0":
             raise ValueError("x0_leak_drop requires predict='x0'")
@@ -103,7 +107,7 @@ class ComplexDDPMTrainer(TrainerBase):
         self.loss_fn = LOSSES[self.cfg.loss]
 
         dis, ddpm = seeded_nets(run.seed, self.num_steps, 4 if self.cond_noisy else 2,
-                                self.mode)
+                                self.mode, exp.model.name)
         # the serving path holds the same modules; it also turns TF32 off
         # before any train step (f32 means f32, as in the JAX reference)
         self.enhancer = Enhancer(dis, ddpm, exp, device=dev, sigma=run.sigma)

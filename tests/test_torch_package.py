@@ -1,9 +1,9 @@
 """Package rules of the PyTorch port.
 
 * Every module of ``prior_diffuse_tpu_torch`` imports with jax, flax, optax,
-  orbax, yaml and the JAX package blocked, the training, bf16 serving and
-  diffusion-mode slices' included,
-  and ``conf/diff.yml`` loads so: the machine with the GPU has none of
+  orbax, yaml and the JAX package blocked, the training, bf16 serving,
+  diffusion-mode and prior slices' included, and ``conf/diff.yml``,
+  ``conf/gcrn.yml`` and ``conf/dbaiat.yml`` load so: the machine with the GPU has none of
   them, and this test process imports jax (``conftest.py``), so an
   accidental import would pass every other test here.
 * ``chip_smoke.py`` refuses to run without a CUDA card: it exits non-zero
@@ -39,6 +39,9 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     from prior_diffuse_tpu_torch.config import load_experiment
     exp = load_experiment("conf/diff.yml")
     assert (exp.train.batch_size, exp.optim_ddpm.lr) == (6, 0.0002), exp
+    from prior_diffuse_tpu_torch.models import model_class
+    for conf, cls in (("gcrn", "GCRN"), ("dbaiat", "AiaComplexTransRI")):
+        assert model_class(load_experiment(f"conf/{conf}.yml").model.name).__name__ == cls
     print(" ".join(names))
 """)
 
@@ -61,14 +64,20 @@ MODES_SLICE = ["models.diffunet", "convert", "diffusion.sampler", "serving.enhan
                "training.base", "training.checkpoint", "training.ddpm_trainer"]
 
 
+# the modules of the GCRN / DB-AIAT priors and ComplexTrainer
+PRIORS_SLICE = ["models", "models.layers", "models.gcrn", "models.dbaiat", "convert",
+                "serving.enhance", "serving.enhancer", "training.complex_trainer",
+                "training.ddpm_trainer", "cli"]
+
+
 def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,
                           env={**os.environ, "PYTHONPATH": ROOT})
     assert proc.returncode == 0, proc.stderr
     walked = set(proc.stdout.split())
-    assert len(walked) >= 44  # every module was walked
-    missing = [m for m in TRAINING_SLICE + BF16_SERVING_SLICE + MODES_SLICE
+    assert len(walked) >= 47  # every module was walked
+    missing = [m for m in TRAINING_SLICE + BF16_SERVING_SLICE + MODES_SLICE + PRIORS_SLICE
                if f"prior_diffuse_tpu_torch.{m}" not in walked]
     assert not missing, missing
 

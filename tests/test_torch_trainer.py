@@ -14,7 +14,8 @@ on the CPU (where every kernel wrapper takes its plain version):
 * ``compare_complex`` and ``PlateauController`` equal the JAX package's;
 * ``cli.main`` trains one epoch and ``--generate`` writes one finite wav
   per test utterance at its input length; what the port does not run
-  yet raises ``NotImplementedError``.
+  yet (``MagTrainer``, the GRN prior, ``--draw``, ...) raises
+  ``NotImplementedError``.
 """
 
 import dataclasses
@@ -238,8 +239,8 @@ def test_eval_needs_a_cv_batch(corpus, tmp_path):
     # what the port does not train yet
     (dataclasses.replace(_exp(), train=tcfg.TrainConfig(compute_dtype="bfloat16")),
      NotImplementedError),
-    (dataclasses.replace(_exp(), model=tcfg.ModelConfig(name="GCRN")), NotImplementedError),
-], ids=["deltamu", "conditional", "deltamu-leak_drop", "deltamu-cond_noisy", "bf16", "gcrn"])
+    (dataclasses.replace(_exp(), model=tcfg.ModelConfig(name="GRN")), NotImplementedError),
+], ids=["deltamu", "conditional", "deltamu-leak_drop", "deltamu-cond_noisy", "bf16", "grn"])
 def test_trainer_refuses_what_is_not_ported(exp, error, tmp_path):
     with pytest.raises(error):
         ComplexDDPMTrainer(tcfg.RunConfig(assets=str(tmp_path)), exp, device="cpu")
@@ -277,7 +278,7 @@ def test_cli_trains_then_generates(corpus, tmp_path, root_logging):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--draw"], ["--profile-steps", "3"], ["--wandb"], ["--trainer", "ComplexTrainer"],
+    ["--draw"], ["--profile-steps", "3"], ["--wandb"], ["--trainer", "MagTrainer"],
 ], ids=["draw", "profile", "wandb", "trainer"])
 def test_cli_refuses_what_is_not_ported(extra, tmp_path, root_logging):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
