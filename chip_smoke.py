@@ -81,7 +81,24 @@ Phases (each passes or ends the script with a non-zero exit):
    width (GCRN 8 x 48000, DB-AIAT 4 x 48000): the K1 step against the
    plain-STFT step (and the wrong window rejected), 5 timed steps,
    ``evaluate()`` (K1 = 2, K2 = 2 a cv batch); and ``cli.main --trainer
-   ComplexTrainer`` on each yml for one epoch, then ``--generate``.
+   ComplexTrainer`` on each yml for one epoch, then ``--generate``;
+9. ``conf/grn.yml``'s GRN (3,131,731 parameters) with ``MagTrainer``: its
+   forward on the card against the CPU at [8, 301, 161] (TF32 off bounded,
+   on printed); ``MagTrainer.enhance_batch`` on the batch of phase 3 (K1 =
+   1, K2 = 1, K3 = 0) against the plain versions, timed, and five requests
+   through ``enhance_files``; training at 8 x 48000 on phase 5's corpus with
+   two more test utterances (the K1 step against the plain-STFT step, the
+   wrong window rejected, 5 timed steps with peak memory, ``evaluate()``
+   with K1 = 2, K2 = 2 a cv batch over cv batches of 8 and a ragged 2);
+   ``cli.main --trainer MagTrainer`` for one epoch, then ``--generate``;
+   DiffWave at full width (64 x 30) on the card against the CPU at [2,
+   48000]; and the GCRN and ``aia_complex_trans_ri`` priors served in bf16
+   as the JAX package serves them (``serving_copy``): ``prior_only_server``
+   in bf16 (K1 = 1, K2 = 1) against the plain versions and against f32
+   (a floor and a ceiling), the bf16 ``Enhancer`` (pirorgrad, plain and
+   ``--sigma``: K1 = 1, K2 = 1, K3-bf16 = 30, K3 = 0) through the kernels
+   against the plain versions, against f32, timed, and on the card against
+   the CPU at 2 x 0.5 s.
 
 It prints a JSON line of per-kernel results before the last line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -160,11 +177,33 @@ PRIOR_PARAMS = {"GCRN": 9_771_340, "aia_complex_trans_ri": 1_179_030,
                 "dual_aia_trans_merge_crm": 2_810_859, "dual_aia_complex_trans": 2_085_935,
                 "aia_complex_trans_mag": 906_905}
 # the served and trained priors, their experiment files and train batches
-PRIOR_CONFS = {"GCRN": ("gcrn.yml", 8), "aia_complex_trans_ri": ("dbaiat.yml", 4)}
+PRIOR_CONFS = {"GCRN": ("gcrn.yml", 8), "aia_complex_trans_ri": ("dbaiat.yml", 4),
+               "GRN": ("grn.yml", 8)}
 # A recurrent or attention forward on the card (cuDNN RNNs, cuBLAS products,
 # TF32 off) against the same module on the CPU: float32 sums in another
 # order through 301 recurrent steps; TF32 (10-bit mantissas) misses it.
 CARD_VS_CPU_F32 = 1e-4
+# Phase 9: GRN's parameter count (tests/test_models.py); MagTrainer's corpus
+# is phase 5's with two more test utterances, so its cv loader (which keeps
+# the ragged tail) ends in a batch of 2
+GRN_PARAMS = 3_131_731
+GRN_TEST = CORPUS[1] + 2
+# bf16 serving of the complex priors, as the JAX package serves them: the
+# prior-only server's bf16 waveform through the kernels against the plain
+# versions, and against its f32 one on the same weights (relative RMS, a
+# floor and a ceiling as BF16_VS_F32_RMS), and the bf16 enhancer on the
+# card against the CPU.  DB-AIAT's bf16 forward is chaotic in its input's
+# rounding: its dense blocks and attention amplify bf16 rounding flips (JAX's
+# own jitted and op-by-op bf16 forwards sit 2e-2 apart; an STFT times 1 +
+# 1e-7 N(0, 1) moves its prior-only waveform 9e-3 and its enhancer's 1e-3 on
+# the CPU: python3 tools/bf16_trace.py --parity, --sensitivity), and its
+# bf16 prior-only waveform sits 2.8e-2 from f32 on the CPU at 2 x 0.3 s; so
+# its prior-only bounds are twice the others', its enhancer's the CPU
+# tests' 3e-2
+BF16_PRIORS = ("GCRN", "aia_complex_trans_ri")
+BF16_PRIOR_ONLY_PATH_RMS = {"GCRN": BF16_PATH_RMS, "aia_complex_trans_ri": 2 * BF16_PATH_RMS}
+BF16_PRIOR_VS_F32_RMS = {"GCRN": (1e-3, 3e-2), "aia_complex_trans_ri": (1e-3, 6e-2)}
+BF16_PRIOR_CARD_VS_CPU_RMS = {"GCRN": 2e-2, "aia_complex_trans_ri": 3e-2}
 
 
 def fail(msg: str) -> None:
@@ -753,9 +792,8 @@ def layer_times(enh, wav, card, label: str):
     steps = enh.sched.num_steps
     with torch.no_grad():
         feat = compress_spec(kstft.stft(wav), "sqrt")
-        pack_dis, pack_ddpm = enh.packs()
-        prior = ((lambda: enh.dis(feat)) if pack_dis is None
-                 else (lambda: fused_unet_forward(pack_dis, feat)))
+        _, pack_ddpm = enh.packs()
+        prior = lambda: enh.prior(feat)  # noqa: E731 (packed, or the serving copy)
         x_init = prior() / c
         cond = enh.conditioner(feat, c, x_init)
         t = torch.full((BATCH,), float(enh.sched.T[-1]), device=wav.device, dtype=enh.dtype)
@@ -1247,10 +1285,12 @@ def mode_config(mode: str):
     return ExperimentConfig(diffusion=DiffusionConfig(**MODES.get(mode, {})))
 
 
-def bf16_card_vs_cpu(device, dis, denoisers) -> None:
-    """Phase 7b: the bf16 enhancer on the card (kernels, cuDNN and cuBLAS in
-    bf16) against the same enhancer on the CPU (the plain versions) on one
-    ``x_T``, at 2 x 0.5 s, in each mode."""
+def bf16_card_vs_cpu(device, dis, denoisers, bound: float = None, what: str = "") -> None:
+    """Phase 7b (9e with another prior, ``what``): the bf16 enhancer on the
+    card (kernels, cuDNN and cuBLAS in bf16) against the same enhancer on
+    the CPU (the plain versions) on one ``x_T``, at 2 x 0.5 s, in each
+    mode; within ``bound`` (default BF16_CARD_VS_CPU_RMS)."""
+    bound = bound or BF16_CARD_VS_CPU_RMS
     import torch
 
     from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
@@ -1265,11 +1305,11 @@ def bf16_card_vs_cpu(device, dis, denoisers) -> None:
             enh = Enhancer(*nets, mode_config(mode), device=dev, dtype=torch.bfloat16)
             out[dev.type] = enh.enhance_batch(wav, x_T=x_T).cpu()
         err = rel_rms(out["cuda"], out["cpu"])
-        print(f"enhance_batch [{mode}, bf16] {tuple(out['cpu'].shape)} on the card vs on the "
-              f"CPU (plain versions), one x_T: rel RMS {err:.3e} "
-              f"(bound {BF16_CARD_VS_CPU_RMS:g})", flush=True)
-        if err > BF16_CARD_VS_CPU_RMS:
-            fail(f"the bf16 batch [{mode}] on the card strays from the CPU's")
+        print(f"enhance_batch [{what}{mode}, bf16] {tuple(out['cpu'].shape)} on the card vs on "
+              f"the CPU (plain versions), one x_T: rel RMS {err:.3e} (bound {bound:g})",
+              flush=True)
+        if err > bound:
+            fail(f"the bf16 batch [{what}{mode}] on the card strays from the CPU's")
 
 
 def train_mode_phase(device, card, root: str, corpus: str, mode: str) -> tuple:
@@ -1364,16 +1404,23 @@ def card_vs_cpu_f32(device, priors) -> None:
               torch.randn(BATCH * 80, T_FRAMES, 32, generator=g))]
     cases += [(f"{name} forward", net, torch.randn(2, 101, 161, 2, generator=g))
               for name, net in priors.items()]
-    for label, net, x in cases:
+    card_vs_cpu(device, [(label, net, (x,)) for label, net, x in cases])
+
+
+def card_vs_cpu(device, cases) -> None:
+    """Each ``(label, net, inputs)`` forward on the card against the same
+    module on the CPU: with TF32 off within CARD_VS_CPU_F32 of the largest
+    value, with TF32 on printed."""
+    for label, net, args in cases:
         cpu = copy.deepcopy(net).cpu().eval()
         card = copy.deepcopy(net).to(device).eval()
-        want = cpu(x)
+        want = cpu(*args)
         errs = {}
         for on in (False, True):
             with tf32(on):
-                err, ref = max_err(card(x.to(device)).cpu(), want)
+                err, ref = max_err(card(*(a.to(device) for a in args)).cpu(), want)
             errs[on] = err / ref
-        print(f"{label} {tuple(x.shape)} on the card vs the CPU: max|err| / max|ref| "
+        print(f"{label} {tuple(args[0].shape)} on the card vs the CPU: max|err| / max|ref| "
               f"{errs[False]:.3e} with TF32 off (bound {CARD_VS_CPU_F32:g}), {errs[True]:.3e} "
               f"with TF32 on", flush=True)
         if errs[False] > CARD_VS_CPU_F32:
@@ -1393,53 +1440,63 @@ def prior_exp(name: str):
     return exp
 
 
+def trainer_of(name: str) -> str:
+    """The trainer that trains the prior alone: ``MagTrainer`` for GRN (a
+    magnitude model), else ``ComplexTrainer``."""
+    return "MagTrainer" if name == "GRN" else "ComplexTrainer"
+
+
 def complex_trainer(device, name, net, root, corpus, tag=""):
-    """A ``ComplexTrainer`` of the prior's yml on the corpus, holding
-    ``net``'s weights."""
+    """The trainer (:func:`trainer_of`) of the prior's yml on the corpus,
+    holding ``net``'s weights."""
     from prior_diffuse_tpu_torch.config import RunConfig
     from prior_diffuse_tpu_torch.training.complex_trainer import ComplexTrainer
+    from prior_diffuse_tpu_torch.training.mag_trainer import MagTrainer
 
-    run = RunConfig(seed=7, trainer="ComplexTrainer", data_root=corpus,
+    cls = MagTrainer if trainer_of(name) == "MagTrainer" else ComplexTrainer
+    run = RunConfig(seed=7, trainer=trainer_of(name), data_root=corpus,
                     assets=os.path.join(root, f"assets_{name}{tag}"))
-    tr = ComplexTrainer(run, prior_exp(name), device=device)
+    tr = cls(run, prior_exp(name), device=device)
     tr.model.load_state_dict(net.state_dict())
     return tr
 
 
 def complex_serving(device, card, name, tr) -> dict:
-    """Phase 8b: ``ComplexTrainer.enhance_batch`` on the batch of phase 3
-    through the kernels against the plain versions, launch counts K1 = 1,
-    K2 = 1, K3 = 0, CUDA-event ms, device ms, launches and top kernels;
-    then five requests through ``enhance_files``."""
+    """Phase 8b (9b for GRN): ``ComplexTrainer.enhance_batch`` (or
+    ``MagTrainer``'s) on the batch of phase 3 through the kernels against
+    the plain versions, launch counts K1 = 1, K2 = 1, K3 = 0, CUDA-event
+    ms, device ms, launches and top kernels; then five requests through
+    ``enhance_files``."""
     import torch
 
     from prior_diffuse_tpu_torch.serving.enhance import enhance_files
 
+    trainer = type(tr).__name__
     wav = speechlike(BATCH, LENGTH, 3)
     wav_dev = torch.from_numpy(wav).to(device)
     reset_counts()
     out = tr.enhance_batch(wav)
     torch.cuda.synchronize()
-    counts = expect_counts(f"ComplexTrainer.enhance_batch [{name}]",
+    counts = expect_counts(f"{trainer}.enhance_batch [{name}]",
                            {"stft": 1, "istft": 1, "enc_stage": 0})
     with plain_versions():
         ref = tr.enhance_batch(wav)
     torch.cuda.synchronize()
     if out.shape != (BATCH, LENGTH) or out.dtype != torch.float32:
-        fail(f"ComplexTrainer.enhance_batch [{name}] returned {tuple(out.shape)} {out.dtype}")
+        fail(f"{trainer}.enhance_batch [{name}] returned {tuple(out.shape)} {out.dtype}")
     err, refmax = max_err(out, ref)
-    print(f"ComplexTrainer.enhance_batch [{name}, f32] {tuple(out.shape)}: max|kernels - "
+    print(f"{trainer}.enhance_batch [{name}, f32] {tuple(out.shape)}: max|kernels - "
           f"plain| {err:.3e} (bound {PATH_RTOL * refmax:.3e}, max|ref| {refmax:.3e})",
           flush=True)
     if err > PATH_RTOL * refmax:
-        fail(f"ComplexTrainer.enhance_batch [{name}] disagrees with its plain-version run")
+        fail(f"{trainer}.enhance_batch [{name}] disagrees with its plain-version run")
     batch = lambda: tr.enhance_batch(wav_dev)
     ms = cuda_ms(batch, iters=10, warmup=2)
     with plain_versions():
         plain_ms = cuda_ms(batch, iters=3, warmup=1)
     dev = device_ms(batch, calls=3)
     top, launches = top_kernels(batch)
-    print(f"ComplexTrainer.enhance_batch [{name}, f32] batch {BATCH} x {LENGTH // SR} s: "
+    print(f"{trainer}.enhance_batch [{name}, f32] batch {BATCH} x {LENGTH // SR} s: "
           f"{ms:.3f} ms/batch, RTF {BATCH * LENGTH / SR / (ms / 1e3):.1f}x (plain versions "
           f"{plain_ms:.3f} ms); device {fmt(dev)} ms, {launches} kernel launches a batch; "
           f"top kernels by device ms per batch: " + "; ".join(
@@ -1452,7 +1509,7 @@ def complex_serving(device, card, name, tr) -> dict:
     for w, o in zip(wavs, outs):
         if o.shape != w.shape or not np.isfinite(o).all():
             fail(f"enhance_files [{name}] returned {o.shape} for {w.shape} or non-finite values")
-    print(f"enhance_files [{name}, ComplexTrainer]: {len(wavs)} requests, lengths {lengths} "
+    print(f"enhance_files [{name}, {trainer}]: {len(wavs)} requests, lengths {lengths} "
           f"-> ok ({wall * 1e3:.1f} ms wall incl. host)", flush=True)
     return counts
 
@@ -1516,43 +1573,47 @@ def prior_ddpm_phase(device, card, root, corpus, name, net, ddpm) -> dict:
 
 
 def complex_train_phase(device, card, root, corpus, name, net) -> dict:
-    """Phase 8d: ``ComplexTrainer`` of the prior's yml at its width: the K1
-    step against the plain-STFT step (the wrong window rejected), 5 timed
-    steps, ``evaluate()``; returns the launch counts of a step and of the
-    evaluation."""
+    """Phase 8d (9c for GRN): ``ComplexTrainer`` (``MagTrainer``) of the
+    prior's yml at its width: the K1 step against the plain-STFT step (the
+    wrong window rejected), 5 timed steps, ``evaluate()``; returns the
+    launch counts of a step and of the evaluation."""
     import torch
 
     tr = complex_trainer(device, name, net, root, corpus, tag="_train")
+    trainer, kind = type(tr).__name__, "mag" if name == "GRN" else "complex"
     batches = [tr.put_batch(b.noisy, b.clean, b.frame_nums) for b in tr.tr_loader]
     rows = PRIOR_CONFS[name][1]
     if len(batches) != CORPUS[0] // rows or batches[0][0].shape != (rows, LENGTH):
         fail(f"{len(batches)} train batches of {tuple(batches[0][0].shape)}")
     step_through_k1_and_plain(tr, batches[0])
-    counts = {f"train_step_complex_{name}": timed_steps(tr, batches, card, iters=5,
-                                                        label=f"ComplexTrainer, {name}")}
+    counts = {f"train_step_{kind}_{name}": timed_steps(tr, batches, card, iters=5,
+                                                       label=f"{trainer}, {name}")}
     n_cv = len(tr.cv_loader)
+    cv_rows = [len(b.frame_nums) for b in tr.cv_loader]
+    print(f"{trainer} [{name}]: cv batches of {cv_rows} utterances", flush=True)
     reset_counts()
     t0 = time.perf_counter()
     cv_loss = tr.evaluate()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts[f"evaluate_cv_batch_complex_{name}"] = expect_counts(
-        f"ComplexTrainer.evaluate() [{name}] over {n_cv} cv batch(es)",
+    counts[f"evaluate_cv_batch_{kind}_{name}"] = expect_counts(
+        f"{trainer}.evaluate() [{name}] over {n_cv} cv batch(es)",
         {"stft": 2 * n_cv, "istft": 2 * n_cv, "enc_stage": 0})
     ev = [r for r in metric_records(tr.run.log_dir) if "test_loss" in r][-1]
     scores = [f"test_mean_{m}" for m in ("csig", "cbak", "covl", "pesq", "ssnr", "stoi")]
     if not finite([cv_loss, *(ev[k] for k in scores)]):
         fail(f"non-finite evaluation [{name}]: {ev}")
-    print(f"ComplexTrainer.evaluate() [{name}]: cv loss {cv_loss:.5f}, " + ", ".join(
+    print(f"{trainer}.evaluate() [{name}]: cv loss {cv_loss:.5f}, " + ", ".join(
         f"{k[10:]} {ev[k]:.3f}" for k in scores) + f"; {wall / n_cv * 1e3:.1f} ms wall per "
         f"cv batch incl. host scoring; card {card}", flush=True)
     return counts
 
 
-def complex_cli_phase(root, corpus, name, card) -> dict:
-    """Phase 8e: ``cli.main --trainer ComplexTrainer`` on a copy of the
-    prior's yml for one epoch, then ``--generate``; returns the launch
-    counts of both runs."""
+def complex_cli_phase(root, corpus, name, card, n_test: int = CORPUS[1]) -> dict:
+    """Phase 8e (9d for GRN): ``cli.main --trainer ComplexTrainer`` (or
+    ``MagTrainer``) on a copy of the prior's yml for one epoch, then
+    ``--generate``, on a corpus of ``n_test`` test utterances; returns the
+    launch counts of both runs."""
     import torch
 
     from prior_diffuse_tpu_torch import cli
@@ -1568,16 +1629,19 @@ def complex_cli_phase(root, corpus, name, card) -> dict:
     with open(path, "w") as f:
         f.write(text.replace(epochs, "  n_epochs: 1"))
     assets = os.path.join(root, f"cli_{name}")
-    args = ["--trainer", "ComplexTrainer", "--config", path, "--data-root", corpus,
+    trainer, kind = trainer_of(name), "mag" if name == "GRN" else "complex"
+    args = ["--trainer", trainer, "--config", path, "--data-root", corpus,
             "--assets", assets, "--doc", name, "--seed", "11"]
-    n_steps, n_cv = CORPUS[0] // rows, CORPUS[1] // rows
+    # MagTrainer keeps the ragged last cv batch; ComplexTrainer drops it
+    n_steps = CORPUS[0] // rows
+    n_cv = -(-n_test // rows) if trainer == "MagTrainer" else n_test // rows
     print(f"cli.main {' '.join(args)}", flush=True)
     reset_counts()
     t0 = time.perf_counter()
     cli.main(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    train = expect_counts(f"cli.main --trainer ComplexTrainer [{name}, 1 epoch]",
+    train = expect_counts(f"cli.main --trainer {trainer} [{name}, 1 epoch]",
                           {"stft": 2 * (n_steps + n_cv), "istft": 2 * n_cv, "enc_stage": 0})
     recs = metric_records(os.path.join(assets, "log", name))
     steps = [r for r in recs if "train_batch_loss" in r]
@@ -1593,8 +1657,8 @@ def complex_cli_phase(root, corpus, name, card) -> dict:
     reset_counts()
     cli.main(args + ["--generate"])
     torch.cuda.synchronize()
-    n_gen = -(-CORPUS[1] // rows)
-    generate = expect_counts(f"cli.main --trainer ComplexTrainer --generate [{name}]",
+    n_gen = -(-n_test // rows)
+    generate = expect_counts(f"cli.main --trainer {trainer} --generate [{name}]",
                              {"stft": n_gen, "istft": n_gen, "enc_stage": 0})
     ins = sorted(glob.glob(os.path.join(corpus, "noisy_testset_wav", "*.wav")))
     outs = sorted(glob.glob(os.path.join(assets, "wav", name, "*.wav")))
@@ -1606,12 +1670,12 @@ def complex_cli_phase(root, corpus, name, card) -> dict:
             fail(f"--generate [{name}]: {o} has {y.shape} for {x.shape}, or no finite signal")
     print(f"cli.main --generate [{name}]: {len(outs)} wavs, finite, at the inputs' lengths",
           flush=True)
-    return {f"cli_train_complex_{name}": train, f"cli_generate_complex_{name}": generate}
+    return {f"cli_train_{kind}_{name}": train, f"cli_generate_{kind}_{name}": generate}
 
 
-def prior_phase(device, card, root, corpus, ddpm) -> dict:
-    """Phase 8; returns the launch counts of its paths."""
-    priors = prior_nets(device)
+def prior_phase(device, card, root, corpus, ddpm, priors) -> dict:
+    """Phase 8 on the served priors of :func:`prior_nets`; returns the
+    launch counts of its paths."""
     card_vs_cpu_f32(device, priors)
     paths = {}
     for name, net in priors.items():
@@ -1620,6 +1684,120 @@ def prior_phase(device, card, root, corpus, ddpm) -> dict:
         paths.update(prior_ddpm_phase(device, card, root, corpus, name, net, ddpm))
         paths.update(complex_train_phase(device, card, root, corpus, name, net))
         paths.update(complex_cli_phase(root, corpus, name, card))
+    return paths
+
+
+def grn_corpus(root: str, corpus: str) -> str:
+    """Phase 5's corpus with GRN_TEST - CORPUS[1] more test utterances."""
+    import shutil
+
+    from prior_diffuse_tpu_torch.data.synthetic import make_speechlike
+    from prior_diffuse_tpu_torch.data.wavio import write_wav
+
+    out = os.path.join(root, "corpus_grn")
+    shutil.copytree(corpus, out)
+    rng = np.random.default_rng(9)
+    for i in range(CORPUS[1], GRN_TEST):
+        noisy, clean = make_speechlike(rng, int(rng.integers(48000, 64000)), SR,
+                                       float(rng.uniform(0.0, 15.0)))
+        for kind, wav in (("noisy", noisy), ("clean", clean)):
+            write_wav(os.path.join(out, f"{kind}_testset_wav", f"ste_{i:03d}.wav"), wav, SR)
+    return out
+
+
+def grn_phase(device, card, root: str, corpus: str) -> dict:
+    """Phase 9a-d: GRN at full width with seeded weights (its parameter
+    count; its forward on the card against the CPU at [8, 301, 161]), then
+    ``MagTrainer`` of ``conf/grn.yml``: its serving batch (K1 = 1, K2 = 1),
+    training at 8 x 48000 (the K1 step against the plain-STFT step, the
+    wrong window rejected, 5 timed steps, ``evaluate()`` with a ragged last
+    cv batch), and ``cli.main --trainer MagTrainer`` for one epoch and
+    ``--generate``; returns the launch counts of its paths."""
+    import torch
+
+    from prior_diffuse_tpu_torch.models.grn import GRN
+
+    net = seeded_nets(60, device, (GRN,))[0]
+    n = sum(p.numel() for p in net.parameters())
+    print(f"GRN: {n:,} parameters (reference {GRN_PARAMS:,})", flush=True)
+    if n != GRN_PARAMS:
+        fail(f"GRN has {n} parameters, expected {GRN_PARAMS}")
+    g = torch.Generator().manual_seed(60)
+    card_vs_cpu(device, [("GRN forward", net, (torch.rand(BATCH, T_FRAMES, 161, generator=g),))])
+    corpus = grn_corpus(root, corpus)
+    tr = complex_trainer(device, "GRN", net, root, corpus)
+    paths = {"serve_batch_mag_GRN": complex_serving(device, card, "GRN", tr)}
+    paths.update(complex_train_phase(device, card, root, corpus, "GRN", net))
+    paths.update(complex_cli_phase(root, corpus, "GRN", card, n_test=GRN_TEST))
+    return paths
+
+
+def diffwave_phase(device, card) -> None:
+    """Phase 9e: DiffWave at its default width (64 channels, 30 layers),
+    seeded, on the card against the CPU at [2, 48000]; its forward's time."""
+    import torch
+
+    from prior_diffuse_tpu_torch.models.diffwave import DiffWave
+
+    net = seeded_nets(61, device, (DiffWave,))[0]
+    g = torch.Generator().manual_seed(61)
+    args = (torch.randn(2, LENGTH, generator=g), 0.5 * torch.randn(2, LENGTH, generator=g),
+            torch.tensor([3, 41]))
+    print(f"DiffWave: {sum(p.numel() for p in net.parameters()):,} parameters, "
+          f"{net.residual_layers} layers", flush=True)
+    card_vs_cpu(device, [("DiffWave forward", net, args)])
+    on_card = [a.to(device) for a in args]
+    ms = cuda_ms(lambda: net(*on_card), iters=5, warmup=1)
+    print(f"DiffWave forward [2, {LENGTH}], f32: {ms:.3f} ms (CUDA events); device "
+          f"{fmt(device_ms(lambda: net(*on_card), calls=2))} ms; card {card}", flush=True)
+
+
+def bf16_prior_phase(device, card, priors, ddpm) -> dict:
+    """Phase 9f: each of BF16_PRIORS served in bf16 as the JAX package serves
+    it (its serving copy): ``prior_only_server`` in bf16 (K1 = 1, K2 = 1)
+    against the plain versions and against f32 on the same weights; the
+    bf16 ``Enhancer`` in pirorgrad, plain and ``--sigma`` (K1 = 1, K2 = 1,
+    K3-bf16 = 30; :func:`run_main_path`); the bf16 enhancer on the card
+    against the CPU at 2 x 0.5 s.  Returns the launch counts of its paths."""
+    import torch
+
+    from prior_diffuse_tpu_torch.serving.enhance import prior_only_server
+    from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
+
+    wav = speechlike(BATCH, LENGTH, 3)
+    wav_dev = torch.from_numpy(wav).to(device)
+    paths = {}
+    for name in BF16_PRIORS:
+        net = priors[name]
+        enh = Enhancer(net, ddpm, mode_config("pirorgrad"), device=device, dtype=torch.bfloat16)
+        server = prior_only_server(enh)
+        reset_counts()
+        out = server.enhance_batch(wav)
+        torch.cuda.synchronize()
+        paths[f"prior_only_{name}_bf16"] = expect_counts(
+            f"prior_only_server [{name}, bf16]", {"stft": 1, "istft": 1})
+        with plain_versions():
+            plain = server.enhance_batch(wav)
+        f32 = prior_only_server(enh, torch.float32).enhance_batch(wav)
+        err, vs = rel_rms(out, plain), rel_rms(out, f32)
+        lo, hi = BF16_PRIOR_VS_F32_RMS[name]
+        print(f"prior_only_server [{name}, bf16] {tuple(out.shape)}: kernels vs plain versions "
+              f"rel RMS {err:.3e} (bound {BF16_PRIOR_ONLY_PATH_RMS[name]:g}); vs f32 on the "
+              f"same weights {vs:.3e} (bounds {lo:g} .. {hi:g})", flush=True)
+        if err > BF16_PRIOR_ONLY_PATH_RMS[name]:
+            fail(f"prior_only_server [{name}, bf16] disagrees with its plain-version run")
+        if not lo <= vs <= hi:
+            fail(f"prior_only_server [{name}, bf16] is {vs:.3e} from f32")
+        batch = lambda: server.enhance_batch(wav_dev)  # noqa: E731
+        ms = cuda_ms(batch, iters=10, warmup=2)
+        top, launches = top_kernels(batch)
+        print(f"prior_only_server [{name}, bf16] batch {BATCH} x {LENGTH // SR} s: {ms:.3f} "
+              f"ms/batch; device {fmt(device_ms(batch, calls=3))} ms, {launches} kernel "
+              f"launches a batch; top kernels: " + "; ".join(
+                  f"{k} {kms:.3f} ({n})" for k, kms, n in top) + f"; card {card}", flush=True)
+        paths.update(run_main_path(device, net, ddpm, card, torch.bfloat16))
+        bf16_card_vs_cpu(device, net, {"pirorgrad": ddpm}, BF16_PRIOR_CARD_VS_CPU_RMS[name],
+                         f"{name} prior, ")
     return paths
 
 
@@ -1687,8 +1865,13 @@ def main() -> None:
             paths[f"train_step_{mode}"], paths[f"evaluate_cv_batch_{mode}"] = \
                 train_mode_phase(device, card, root, corpus, mode)
         mark(8)
-        paths.update(prior_phase(device, card, root, corpus, nets[1]))
-        mark("8 done")
+        priors = prior_nets(device)
+        paths.update(prior_phase(device, card, root, corpus, nets[1], priors))
+        mark(9)
+        paths.update(grn_phase(device, card, root, corpus))
+        diffwave_phase(device, card)
+        paths.update(bf16_prior_phase(device, card, priors, nets[1]))
+        mark("9 done")
 
     # (route, source, replaces, the path whose run "launches" counts)
     meta = {

@@ -6,13 +6,14 @@ The counterpart of ``prior_diffuse_tpu/cli.py`` (reference ``main.py:20-41``):
         --config conf/diff.yml [--joint] [--sigma] [--retrain] [--eval] [--generate]
     python -m prior_diffuse_tpu_torch.cli --trainer ComplexTrainer \\
         --config conf/gcrn.yml [--retrain] [--generate]     (or conf/dbaiat.yml)
+    python -m prior_diffuse_tpu_torch.cli --trainer MagTrainer \\
+        --config conf/grn.yml [--retrain] [--generate]
 
 with assets under ``<assets>/{log,checkpoint,wav}/<doc>`` and data under
 ``--data-root`` (``{noisy,clean}_{trainset,testset}_wav``).  ``--device``
 names the torch device (``cuda`` by default; there is no fallback).  The
 flags of the JAX CLI that the port does not run yet raise
-``NotImplementedError``: ``--trainer MagTrainer``, ``--draw``,
-``--profile-steps`` and ``--wandb``.
+``NotImplementedError``: ``--draw``, ``--profile-steps`` and ``--wandb``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import logging
 from prior_diffuse_tpu_torch.config import RunConfig, load_experiment
 from prior_diffuse_tpu_torch.utils.logging import MetricsLogger, setup_logging
 
-TRAINERS = ("ComplexDDPMTrainer", "ComplexTrainer")
+TRAINERS = ("ComplexDDPMTrainer", "ComplexTrainer", "MagTrainer")
 
 
 def parse_args(argv=None):
@@ -64,9 +65,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     run, use_wandb, device = parse_args(argv)
-    if run.trainer == "MagTrainer":
-        raise NotImplementedError("trainer 'MagTrainer' is not ported yet "
-                                  "(ROADMAP Queue 1 item 10b)")
     if run.trainer not in TRAINERS:
         raise KeyError(f"unknown trainer {run.trainer!r}; one of: {', '.join(TRAINERS)}")
     if run.draw:
@@ -79,6 +77,8 @@ def main(argv=None):
         raise NotImplementedError("--wandb is not ported yet (ROADMAP Queue 1 item 12)")
     if run.trainer == "ComplexTrainer":
         from prior_diffuse_tpu_torch.training.complex_trainer import ComplexTrainer as trainer_cls
+    elif run.trainer == "MagTrainer":
+        from prior_diffuse_tpu_torch.training.mag_trainer import MagTrainer as trainer_cls
     else:
         from prior_diffuse_tpu_torch.training.ddpm_trainer import (
             ComplexDDPMTrainer as trainer_cls)

@@ -5,11 +5,16 @@ numpy arrays, as the JAX package's models hold them.  Module names are
 the same in both packages; the conventions that differ
 (``tests/test_transplant.py``, ``models/layers.py``):
 
-* Conv2d ``HWIO`` <-> ``OIHW``; Conv1d ``WIO`` <-> ``OIW``;
+* Conv2d ``HWIO`` <-> ``OIHW``; Conv1d ``WIO`` <-> ``OIW`` (GRN's trunk and
+  gated blocks ``glu_{g}_{i}/...``, DiffWave's ``res{i}/...``; GRN's
+  ``left_conv``/``right_conv``, which JAX runs as one product of the
+  concatenated kernels, are two convs here under the same names);
 * ConvTranspose2d: the JAX kernel ``[kh, kw, in, out]`` is the spatially
   flipped torch weight ``[in, out, kh, kw]`` (JAX runs the transposed conv
   as an lhs-dilated correlation);
-* Dense ``kernel [in, out]`` <-> Linear ``weight [out, in]``;
+* Dense ``kernel [in, out]`` <-> Linear ``weight [out, in]`` (also the
+  time embedding's ``proj1``/``proj2`` and DiffWave's
+  ``diffusion_projection``);
 * PReLU ``alpha`` <-> ``weight``;
 * BatchNorm ``BatchNorm_0/{scale, bias}`` and batch stats ``{mean, var}``
   <-> ``weight, bias, running_mean, running_var`` (``num_batches_tracked``
@@ -25,9 +30,11 @@ the same in both packages; the conventions that differ
   ``out_proj_weight`` (transposed), ``out_proj_bias``;
 * bare parameters (``k1``, ``k2``, ``k3``) keep their names.
 
-:func:`payload_from_jax` carries a whole JAX trainer checkpoint (both
-nets, both optax states, step and plateau state) into the port's
-checkpoint payload.
+:func:`payload_from_jax` carries a whole JAX trainer checkpoint (its nets
+and optax states, step and plateau state) into the port's checkpoint
+payload: ``ComplexDDPMTrainer``'s ``dis``, ``ddpm``, ``opt_dis``,
+``opt_ddpm``, or ``ComplexTrainer``'s and ``MagTrainer``'s ``model``,
+``opt``.
 """
 
 from __future__ import annotations
@@ -221,9 +228,10 @@ def payload_from_jax(payload, nets: Dict[str, nn.Module], opts: Dict[str, torch.
     """The port's checkpoint payload (``training/base.py::ckpt_payload``)
     of a JAX trainer's (``prior_diffuse_tpu/training/base.py:212-253``), a
     tree of numpy arrays in dicts and lists as orbax restores it without a
-    template.  ``nets`` (``dis``, ``ddpm``) and ``opts`` (``opt_dis``,
-    ``opt_ddpm``) are the port trainer's modules and optimizers, used for
-    their layouts only.  Each BatchNorm's ``num_batches_tracked`` is the
+    template.  ``nets`` (``dis``, ``ddpm``; or ``model``) and ``opts``
+    (``opt_dis``, ``opt_ddpm``; or ``opt``, the optimizer of ``model``) are
+    the port trainer's modules and optimizers, used for their layouts
+    only.  Each BatchNorm's ``num_batches_tracked`` is the
     JAX step (one statistics update a step).  The JAX PRNG key has no torch
     counterpart: the payload's ``generator`` is None, and the trainer that
     restores it seeds its generator from its own seed."""
@@ -239,7 +247,8 @@ def payload_from_jax(payload, nets: Dict[str, nn.Module], opts: Dict[str, torch.
                 raise ValueError(f"{name}.{key}: {tuple(out[name][key].shape)}, "
                                  f"expected {tuple(value.shape)}")
     for name, opt in opts.items():
-        out[name] = adam_from_optax(nets[name[len("opt_"):]], state[name], opt.state_dict())
+        net = nets["model"] if name == "opt" else nets[name[len("opt_"):]]
+        out[name] = adam_from_optax(net, state[name], opt.state_dict())
     return {"state": out, "meta": {
         "step": step, "generator": None,
         "plateau_prev": float(np.asarray(meta["plateau_prev"])),

@@ -29,10 +29,20 @@ from prior_diffuse_tpu_torch.models import layers as tl
 WIDTH = 64
 
 
+def _norm_f32(x, dims, eps, weight, bias):
+    """``(x - mean) / sqrt(var + eps) * weight + bias`` over ``dims``
+    (two-pass statistics), in float32 whatever ``x``'s dtype, the result
+    cast back to it: the JAX modules cast their input up (a bf16 serving
+    copy's weights are promoted with it)."""
+    xf = x.float()
+    var, mean = torch.var_mean(xf, dim=dims, keepdim=True, correction=0)
+    return ((xf - mean) * torch.rsqrt(var + eps) * weight + bias).to(x.dtype)
+
+
 class LayerNormOverF(nn.Module):
     """LayerNorm over the frequency axis of ``[B, C, T, F]`` with a per-bin
     affine of size ``F`` (the reference's ``nn.LayerNorm(F)``); two-pass
-    statistics, as the JAX module computes them."""
+    statistics in float32, as the JAX module computes them."""
 
     def __init__(self, freq: int, eps: float = 1e-5):
         super().__init__()
@@ -41,13 +51,12 @@ class LayerNormOverF(nn.Module):
         self.bias = nn.Parameter(torch.zeros(freq))
 
     def forward(self, x):
-        var, mean = torch.var_mean(x, dim=-1, keepdim=True, correction=0)
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return _norm_f32(x, -1, self.eps, self.weight, self.bias)
 
 
 class GroupNorm1(nn.Module):
     """``nn.GroupNorm(1, C, eps=1e-8)`` on ``[B, T, F, C]``: statistics per
-    sample over (T, F, C) (two-pass), affine per channel."""
+    sample over (T, F, C) (two-pass, float32), affine per channel."""
 
     def __init__(self, channels: int, eps: float = 1e-8):
         super().__init__()
@@ -56,14 +65,17 @@ class GroupNorm1(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        var, mean = torch.var_mean(x, dim=(1, 2, 3), keepdim=True, correction=0)
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return _norm_f32(x, (1, 2, 3), self.eps, self.weight, self.bias)
 
 
 class TransformerEncoderLayer(nn.Module):
     """Pre-normed self-attention (4 heads), then a bidirectional GRU of
     width ``2 d`` and ``linear2`` back to ``d`` as the feed-forward;
-    ``[N, L, d] -> [N, L, d]``.  The GRU runs in float32."""
+    ``[N, L, d] -> [N, L, d]``.  The GRU and ``linear2`` run in float32
+    on the input cast up, their result cast back to it, as in JAX (a bf16
+    serving copy holds their weights rounded to bf16 in float32)."""
+
+    F32_PARTS = ("gru", "linear2")
 
     def __init__(self, d_model: int, nhead: int = 4):
         super().__init__()
@@ -77,7 +89,7 @@ class TransformerEncoderLayer(nn.Module):
     def forward(self, src):
         src = self.norm1(src + self.self_attn(self.norm3(src)))
         out = self.linear2(F.relu(self.gru(src.float())))
-        return self.norm2(src + out)
+        return self.norm2(src + out.to(src.dtype))
 
 
 class _DualPathLayer(nn.Module):
@@ -198,7 +210,7 @@ class AHAM(nn.Module):
 
     def forward(self, inputs: List[torch.Tensor]):
         ys = [self.conv1(x.mean(dim=(2, 3), keepdim=True))[:, 0, 0, 0] for x in inputs]
-        w = torch.softmax(torch.stack(ys, dim=-1), dim=-1)  # [B, layers]
+        w = tl.softmax(torch.stack(ys, dim=-1), dim=-1)  # [B, layers]
         merged = sum(w[:, g, None, None, None] * inputs[g] for g in range(len(inputs)))
         return inputs[-1] + merged
 
@@ -289,8 +301,8 @@ class DenseDecoder(nn.Module):
         h = F.pad(self.dec_conv1(h), (1, 0))
         h = self.out_conv(self.dec_prelu1(self.dec_norm1(h)))
         if self.masking:
-            h = torch.sigmoid(self.mask1(h)) * torch.tanh(self.mask2(h))
-            h = torch.sigmoid(self.maskconv(h))
+            h = tl.sigmoid(self.mask1(h)) * torch.tanh(self.mask2(h))
+            h = tl.sigmoid(self.maskconv(h))
         return h
 
 

@@ -31,7 +31,7 @@ class GluConv2d(nn.Module):
         self.conv2 = nn.Conv2d(cin, features, (1, 3), stride=(1, 2))
 
     def forward(self, x):
-        return self.conv1(x) * torch.sigmoid(self.conv2(x))
+        return self.conv1(x) * tl.sigmoid(self.conv2(x))
 
 
 class GluConvTranspose2d(nn.Module):
@@ -44,7 +44,7 @@ class GluConvTranspose2d(nn.Module):
         self.conv2 = nn.ConvTranspose2d(cin, features, (1, 3), **kw)
 
     def forward(self, x):
-        return self.conv1(x) * torch.sigmoid(self.conv2(x))
+        return self.conv1(x) * tl.sigmoid(self.conv2(x))
 
 
 class GLSTM(nn.Module):
@@ -53,7 +53,9 @@ class GLSTM(nn.Module):
     on consecutive slices, their outputs interleaved feature by feature
     (the reference's ``stack(-1)`` and flatten) before ``ln1``, the second
     layer's concatenated before ``ln2``, then the (C, F) grid again.
-    Always float32, as the JAX package keeps it."""
+    Always float32, as the JAX package keeps it: a bf16 serving copy holds
+    its weights rounded to bf16 in float32 (``F32_PARTS`` of
+    :class:`GCRN`)."""
 
     def __init__(self, hidden: int = 1024, groups: int = 2):
         super().__init__()
@@ -103,7 +105,12 @@ class _Decoder(nn.Module):
 
 
 class GCRN(nn.Module):
-    """Complex-spectrum prior; ``[B, T, 161, 2] -> [B, T, 161, 2]``."""
+    """Complex-spectrum prior; ``[B, T, 161, 2] -> [B, T, 161, 2]``.  In a
+    bf16 serving copy (``serving/enhancer.py::serving_copy``) the grouped
+    LSTM runs in float32 on the bf16 bottleneck cast up, and its output is
+    cast back to the bottleneck's dtype, as JAX's forward does."""
+
+    F32_PARTS = ("glstm",)
 
     def __init__(self):
         super().__init__()
@@ -120,6 +127,6 @@ class GCRN(nn.Module):
         for i in range(1, 6):
             e = F.elu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(e)))
             skips.append(e)
-        out = torch.cat([self.glstm(e), e], dim=1)
+        out = torch.cat([self.glstm(e).to(e.dtype), e], dim=1)
         skips = skips[:4]
         return torch.stack([self.dec_real(out, skips), self.dec_imag(out, skips)], dim=-1)

@@ -84,7 +84,10 @@ class _FlaxBatchStats:
             if self.running_var.dtype == torch.float32:
                 return super().forward(x)
             shape = (1, -1) + (1,) * (x.ndim - 2)
-            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            # the root in float32, rounded once (torch's CPU kernel rounds
+            # a short bf16 tensor's differently); XLA's does so
+            var = (self.running_var + self.eps).float()
+            mul = torch.rsqrt(var).to(self.running_var.dtype) * self.weight
             return (x - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         self._check_input_dim(x)
         dims = [0, *range(2, x.ndim)]
@@ -143,11 +146,40 @@ class GRU(nn.GRU):
         return super().forward(x)[0]
 
 
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``x @ weight^T + bias``; in a dtype below float32 as flax computes it
+    there: the product rounded to the dtype, then the bias added (torch's
+    fused bias rounds once)."""
+    if x.dtype == torch.float32:
+        return F.linear(x, weight, bias)
+    return F.linear(x, weight) + bias
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sigmoid``; in a dtype below float32 as XLA computes
+    ``jax.nn.sigmoid`` there: ``1 / (1 + exp(-x))``, each step rounded to
+    the dtype (``tools/bf16_trace.py``'s table; torch rounds once)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
+
+
+def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.softmax``; in a dtype below float32 as ``jax.nn.softmax``
+    computes it there: ``exp(x - max)`` rounded to the dtype, its sum taken
+    in float32 and rounded, then the quotient (torch rounds once)."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=dim)
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    return e / e.sum(dim=dim, keepdim=True, dtype=torch.float32).to(e.dtype)
+
+
 class MultiHeadAttention(nn.Module):
     """Self-attention shaped as ``nn.MultiheadAttention``: a packed q, k, v
     projection ``in_proj_weight [3d, d]`` (JAX's ``w_in`` transposed),
-    ``q k^T / sqrt(d / heads)``, a softmax over the keys and the output
-    projection.  ``[N, L, d] -> [N, L, d]``."""
+    ``q k^T / sqrt(d / heads)`` (the root rounded to the input's dtype, as
+    JAX's), a softmax over the keys and the output projection.  ``[N, L,
+    d] -> [N, L, d]``; in bf16 with :func:`linear` and :func:`softmax`."""
 
     def __init__(self, d_model: int, num_heads: int):
         super().__init__()
@@ -163,8 +195,9 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, length, d = x.shape
         nh = self.num_heads
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        qkv = linear(x, self.in_proj_weight, self.in_proj_bias)
         q, k, v = qkv.view(n, length, 3, nh, d // nh).permute(2, 0, 3, 1, 4)
-        attn = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(d // nh), dim=-1)
+        root = float(torch.tensor(math.sqrt(d // nh), dtype=x.dtype))
+        attn = softmax(q @ k.transpose(-1, -2) / root, dim=-1)
         out = (attn @ v).transpose(1, 2).reshape(n, length, d)
-        return F.linear(out, self.out_proj_weight, self.out_proj_bias)
+        return linear(out, self.out_proj_weight, self.out_proj_bias)

@@ -2,8 +2,9 @@
 
 The counterpart of ``prior_diffuse_tpu/serving/enhance.py``
 (``enhance_files``, ``enhance_waveform``, ``enhance_directory``,
-``prior_only_server``), and :class:`PriorServer`, the serving path of a
-prior alone.  Files
+``prior_only_server``), :class:`PriorServer`, the serving path of a
+complex prior alone, and :class:`MagServer`, that of a magnitude prior
+(GRN) alone.  Files
 are length-sorted into batches of ``batch_size`` rows; a batch is padded
 to a rung of a
 geometric (x1.5) ladder of ``bucket_samples`` multiples and its row count
@@ -14,7 +15,6 @@ its length and de-normalised.
 
 from __future__ import annotations
 
-import copy
 import glob
 import logging
 import os
@@ -26,12 +26,11 @@ import torch
 
 from prior_diffuse_tpu_torch.config import ExperimentConfig
 from prior_diffuse_tpu_torch.data.wavio import read_wav, write_wav
-from prior_diffuse_tpu_torch.models.diffunet import DiffUNet
 from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
-from prior_diffuse_tpu_torch.serving.enhancer import serving_device, weights_key
-from prior_diffuse_tpu_torch.signal.compress import decompress_spec
+from prior_diffuse_tpu_torch.serving.enhancer import serving_copy, serving_device, weights_key
+from prior_diffuse_tpu_torch.signal.compress import decompress_spec, from_mag_phase
 from prior_diffuse_tpu_torch.signal.normalize import rms_scale
-from prior_diffuse_tpu_torch.training.base import spec_features
+from prior_diffuse_tpu_torch.training.base import mag_features, spec_features
 
 
 def _ladder_pad(longest: int, bucket_samples: int) -> int:
@@ -62,18 +61,13 @@ class PriorServer:
     the prior's module forward in ``dtype`` -> decompress -> ISTFT (K2) ->
     ``[B, L]``, no K3 and no residual DDPM.  It is
     ``ComplexTrainer``'s serving path (JAX ``complex_trainer.py:193-210``)
-    and :func:`prior_only_server`'s.  ``net`` is any prior of the model
-    table (``[B, T, 161, 2] -> [B, T, 161, 2]``); in a dtype other than
-    float32 it is an inference copy with every parameter and BN statistic
-    cast, as the JAX package casts its variables, which the port does for
-    the ``DiffUNet`` only."""
+    and :func:`prior_only_server`'s.  ``net`` is any complex prior of the
+    model table (``[B, T, 161, 2] -> [B, T, 161, 2]``); in a dtype other
+    than float32 it runs as its ``serving_copy``, as the JAX package serves
+    it."""
 
     def __init__(self, net, cfg: ExperimentConfig, device="cuda",
                  dtype: torch.dtype = torch.float32):
-        if dtype != torch.float32 and not isinstance(net, DiffUNet):
-            raise NotImplementedError(
-                f"{type(net).__name__} in {dtype}: the port serves a prior other than "
-                "the DiffUNet in float32 only (ROADMAP Queue 1 item 18)")
         self.device = serving_device(device)
         self.module = net.to(self.device)
         self.cfg = cfg
@@ -82,14 +76,13 @@ class PriorServer:
 
     def net(self):
         """The prior in the server's dtype: the module itself in float32,
-        else an inference copy with every parameter and BN statistic cast,
-        made again when a weight changed."""
+        else its ``serving_copy``, made again when a weight changed."""
         net = self.module.eval()
         if self.dtype == torch.float32:
             return net
         key = weights_key(net)
         if key != self._key:
-            self._net, self._key = copy.deepcopy(net).to(self.dtype), key
+            self._net, self._key = serving_copy(net, self.dtype), key
         return self._net
 
     @torch.no_grad()
@@ -105,6 +98,27 @@ class PriorServer:
         wav = torch.as_tensor(wav, dtype=torch.float32).to(self.device).contiguous()
         est = self.prior(spec_features(wav, self.cfg.train))
         spec = decompress_spec(est.float(), self.cfg.train.feat_type)
+        return kstft.istft(spec.contiguous(), wav.shape[-1])
+
+
+class MagServer(PriorServer):
+    """Serve a magnitude prior alone (``MagTrainer``'s serving path, JAX
+    ``mag_trainer.py:201-217``): ``wav [B, L]`` -> STFT (K1) ->
+    compression -> the compressed magnitude through the prior (GRN, ``[B,
+    T, 161] -> [B, T, 161]``) -> the estimate on the **noisy** phase ->
+    decompress -> ISTFT (K2) -> ``[B, L]``.  Float32, as the JAX trainer
+    serves it."""
+
+    def __init__(self, net, cfg: ExperimentConfig, device="cuda"):
+        super().__init__(net, cfg, device)
+
+    @torch.no_grad()
+    def enhance_batch(self, wav, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``wav [B, L]`` -> ``[B, L]`` float32.  Draws nothing."""
+        wav = torch.as_tensor(wav, dtype=torch.float32).to(self.device).contiguous()
+        feat, phase = mag_features(wav, self.cfg.train)
+        spec = decompress_spec(from_mag_phase(self.prior(feat), phase),
+                               self.cfg.train.feat_type)
         return kstft.istft(spec.contiguous(), wav.shape[-1])
 
 

@@ -7,9 +7,10 @@ same order, without a trainer, with the model compute in ``dtype``
 
 1. STFT 320/160 (K1, float32) and magnitude compression, then cast;
 2. one prior forward gives ``x_init``, divided by ``c``: the packed
-   ``DiffUNet`` (below), or any other prior of the model table (GCRN, the
-   DB-AIAT variants) through its module forward, unpacked, as the JAX
-   package serves it (``ddpm_trainer.py:599-612``);
+   ``DiffUNet`` (below), or any other complex prior of the model table
+   (GCRN, the DB-AIAT variants) through the module forward of its
+   :func:`serving_copy`, unpacked, as the JAX package serves it
+   (``ddpm_trainer.py:599-612``);
 3. with ``sigma``, the PriorGrad mask of ``x_init``;
 4. the reverse chain of denoiser forwards (6 on the fast schedule) in
    ``dtype``, in the config's diffusion mode (``diffusion_mode``):
@@ -35,9 +36,11 @@ spectra too.
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import torch
+import torch.nn as nn
 
 from prior_diffuse_tpu_torch.config import ExperimentConfig
 from prior_diffuse_tpu_torch.diffusion.qsample import sigma_mask
@@ -74,8 +77,67 @@ def serving_device(device) -> torch.device:
     return device
 
 
+class _ProductThenBias(nn.Module):
+    """A conv or linear layer of a serving copy below float32 as flax
+    computes it there: the product rounded to the dtype, then the bias
+    added and the sum rounded again (torch's fused bias rounds once)."""
+
+    def __init__(self, product: nn.Module):
+        super().__init__()
+        self.bias = product.bias
+        product.bias = None
+        self.product = product
+        self._channel_first = not isinstance(product, nn.Linear)
+
+    def forward(self, x):
+        y = self.product(x)
+        return y + (self.bias.view(-1, *(1,) * (y.ndim - 2)) if self._channel_first
+                    else self.bias)
+
+
+_PRODUCTS = (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)
+
+
+def _bias_apart(module: nn.Module) -> None:
+    """Wrap every conv and linear layer with a bias under ``module`` (but
+    not in its ``F32_PARTS``) in :class:`_ProductThenBias`."""
+    for name, child in list(module.named_children()):
+        if name in getattr(module, "F32_PARTS", ()):
+            continue
+        if isinstance(child, _PRODUCTS) and child.bias is not None:
+            setattr(module, name, _ProductThenBias(child))
+        else:
+            _bias_apart(child)
+
+
+def serving_copy(net: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """``net`` for inference in ``dtype`` as the JAX package serves a prior
+    in ``serve_dtype``: the net itself in float32; else a copy with every
+    parameter and BN statistic cast to ``dtype`` (JAX casts its variables,
+    ``ddpm_trainer.py:680-686``, ``serving/enhance.py:119-126``), whose
+    ops then run in the promotion of their operands' dtypes.  Where JAX
+    feeds a part float32 (GCRN's grouped LSTM, DB-AIAT's GRUs and the
+    ``linear2`` after them), that part's ``F32_PARTS`` entry holds the
+    ``dtype``-rounded weights in float32, as JAX promotes the bf16 weights
+    to f32 there; the modules' forwards cast around those parts as JAX
+    does (``tools/bf16_trace.py`` traces JAX's forward, PERF.md has the
+    table).  cuDNN gets one flat weight buffer per RNN.  Each conv and
+    linear layer in ``dtype`` rounds its product before adding its bias, as
+    flax's do (:class:`_ProductThenBias`).  Inference only."""
+    if dtype == torch.float32:
+        return net
+    out = copy.deepcopy(net).to(dtype).eval()
+    for module in list(out.modules()):
+        for name in getattr(module, "F32_PARTS", ()):
+            for m in getattr(module, name).float().modules():
+                if isinstance(m, nn.RNNBase):
+                    m.flatten_parameters()
+    _bias_apart(out)
+    return out
+
+
 class Enhancer:
-    """Serve a prior (the ``DiffUNet``, or in float32 any prior of the
+    """Serve a prior (the ``DiffUNet``, or any other complex prior of the
     model table) and a DDPM denoiser (``DiffUNet1``, or ``Nocon`` in
     deltamu mode) on ``device`` in ``dtype``; ``sigma`` turns on the
     PriorGrad mask.  ``device`` is the card unless the caller asks for
@@ -89,11 +151,6 @@ class Enhancer:
             raise ValueError("the STFT kernels implement the 320/160 framing only")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"the enhancer serves float32 or bfloat16, not {dtype}")
-        if dtype != torch.float32 and not isinstance(dis, DiffUNet):
-            # JAX casts such a prior's variables and promotes op by op
-            raise NotImplementedError(
-                f"a {type(dis).__name__} prior in {dtype}: the port serves a prior other "
-                "than the DiffUNet in float32 only (ROADMAP Queue 1 item 18)")
         self.device = serving_device(device)
         self.cfg = cfg
         self.sigma = sigma
@@ -103,20 +160,33 @@ class Enhancer:
         self.sched = inference_schedule(diff)
         self._pack_key = None
         self._packs = None
+        self._prior_copy = None
 
     def packs(self):
         """``(prior, denoiser)`` operands of :func:`fused_unet_forward` in
         the enhancer's dtype, repacked when a weight changed
         (:func:`weights_key`); the prior's is None unless it is a
-        ``DiffUNet``.  The decoders are dual in every dtype but float32."""
+        ``DiffUNet`` (another prior's :func:`serving_copy` is made again
+        with them).  The decoders are dual in every dtype but float32."""
         key = weights_key(self.dis, self.ddpm)
         if key != self._pack_key:
             dual = self.dtype != torch.float32
-            self._packs = (pack_unet(self.dis, self.dtype, dual)
-                           if isinstance(self.dis, DiffUNet) else None,
+            packed = isinstance(self.dis, DiffUNet)
+            self._packs = (pack_unet(self.dis, self.dtype, dual) if packed else None,
                            pack_unet(self.ddpm, self.dtype, dual))
+            self._prior_copy = None if packed else serving_copy(self.dis, self.dtype)
             self._pack_key = key
         return self._packs
+
+    @torch.no_grad()
+    def prior(self, feat: torch.Tensor) -> torch.Tensor:
+        """The prior's estimate of the compressed spectrum ``feat [B, T,
+        161, 2]`` in the enhancer's dtype: the packed ``DiffUNet``, or
+        another prior's :func:`serving_copy` (its module forward)."""
+        pack_dis, _ = self.packs()
+        feat = feat.to(self.dtype)
+        return (self._prior_copy(feat) if pack_dis is None
+                else fused_unet_forward(pack_dis, feat))
 
     @torch.no_grad()
     def enhance_batch(self, wav, generator: Optional[torch.Generator] = None,
@@ -146,11 +216,10 @@ class Enhancer:
         c = rounded([diff.scale_c], dt)[0]
         self.dis.eval()
         self.ddpm.eval()
-        pack_dis, pack_ddpm = self.packs()
+        _, pack_ddpm = self.packs()
         feat = feat.to(dt)
         # a DiffUNet through its packed forward (K3), any other prior unpacked
-        x_init = (self.dis(feat) if pack_dis is None
-                  else fused_unet_forward(pack_dis, feat)) / c
+        x_init = self.prior(feat) / c
         sig = sigma_mask(x_init) if self.sigma else None
         cond = self.conditioner(feat, c, x_init)
 

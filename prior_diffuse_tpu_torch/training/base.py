@@ -11,7 +11,7 @@ checkpointing, LR control) stays in numpy.
 from __future__ import annotations
 
 import logging
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +20,7 @@ from prior_diffuse_tpu_torch.config import ExperimentConfig, RunConfig
 from prior_diffuse_tpu_torch.convert import flax_key
 from prior_diffuse_tpu_torch.data.dataset import EvalLoader, PairedWavDataset, TrainLoader
 from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
-from prior_diffuse_tpu_torch.signal.compress import compress_spec
+from prior_diffuse_tpu_torch.signal.compress import compress_spec, mag_phase
 from prior_diffuse_tpu_torch.training.checkpoint import CheckpointStore
 from prior_diffuse_tpu_torch.training.plateau import PlateauController
 from prior_diffuse_tpu_torch.utils.logging import MetricsLogger
@@ -32,6 +32,13 @@ def spec_features(wav: torch.Tensor, cfg) -> torch.Tensor:
     if (cfg.fft_num, cfg.win_size, cfg.win_shift) != (320, 320, 160):
         raise ValueError("the STFT kernels implement the 320/160 framing only")
     return compress_spec(kstft.stft(wav), cfg.feat_type)
+
+
+def mag_features(wav: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """waveform ``[B, L]`` -> (compressed magnitude, phase), each ``[B, T,
+    161]``: :func:`spec_features` (K1 on CUDA tensors), then its magnitude
+    and phase (JAX ``training/base.py:64-68``)."""
+    return mag_phase(spec_features(wav, cfg))
 
 
 def grad_groups(model: torch.nn.Module, depth: int = 2) -> Dict[str, List[torch.nn.Parameter]]:

@@ -30,7 +30,7 @@ import torch
 from prior_diffuse_tpu_torch.config import ExperimentConfig, RunConfig
 from prior_diffuse_tpu_torch.losses import LOSSES
 from prior_diffuse_tpu_torch.metrics.compare import compare_complex
-from prior_diffuse_tpu_torch.models import model_class
+from prior_diffuse_tpu_torch.models import complex_prior_class, model_class
 from prior_diffuse_tpu_torch.serving.enhance import PriorServer
 from prior_diffuse_tpu_torch.training.base import (TrainerBase, grad_groups,
                                                    group_grad_norms, spec_features)
@@ -51,6 +51,9 @@ def seeded_model(seed: int, name: str) -> torch.nn.Module:
 class ComplexTrainer(TrainerBase):
     # per-group grad norms go to the JSONL metrics every N steps
     grad_log_every = 50
+    # the priors the trainer takes (raising for any other) and their server
+    prior_class = staticmethod(complex_prior_class)
+    server_class = PriorServer
 
     def __init__(self, run: RunConfig, exp: ExperimentConfig, device="cuda",
                  metrics_logger: Optional[MetricsLogger] = None):
@@ -58,12 +61,12 @@ class ComplexTrainer(TrainerBase):
             raise NotImplementedError(
                 f"compute_dtype {exp.train.compute_dtype!r}: the port trains in "
                 "float32 only; bf16 training is ROADMAP Queue 1 item 16")
-        model_class(exp.model.name)  # an unknown or unported prior raises here
+        self.prior_class(exp.model.name)  # an unknown or a model of another kind raises
         super().__init__(run, exp, device, metrics_logger)
         self.loss_fn = LOSSES[self.cfg.loss]
         # the server turns TF32 off before any train step (f32 means f32)
-        self.server = PriorServer(seeded_model(run.seed, exp.model.name), exp,
-                                  device=self.device)
+        self.server = self.server_class(seeded_model(run.seed, exp.model.name), exp,
+                                        device=self.device)
         self.model = self.server.module
         self.opt = torch_adam(self.model.parameters(), exp.optim.lr, exp.optim.l2)
         self.nets = {"model": self.model}

@@ -44,7 +44,7 @@ from prior_diffuse_tpu_torch.diffusion.schedule import inference_schedule
 from prior_diffuse_tpu_torch.losses import (LOSSES, com_mse_loss, com_mse_sigma_loss,
                                              frame_mask)
 from prior_diffuse_tpu_torch.metrics.compare import compare_complex
-from prior_diffuse_tpu_torch.models import model_class
+from prior_diffuse_tpu_torch.models import complex_prior_class
 from prior_diffuse_tpu_torch.models.diffunet import DiffUNet1, Nocon
 from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
 from prior_diffuse_tpu_torch.training.base import (TrainerBase, grad_groups,
@@ -60,7 +60,7 @@ def seeded_nets(seed: int, num_steps: int, cond_channels: int, mode: str = "piro
     net, not the config's name, JAX ``ddpm_trainer.py:156-160``) with
     torch's default initialisation (the reference's own), drawn from
     ``seed`` without touching the caller's global random state."""
-    prior_cls = model_class(prior)
+    prior_cls = complex_prior_class(prior)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         ddpm = (Nocon(num_steps) if mode == "deltamu"
@@ -82,7 +82,7 @@ class ComplexDDPMTrainer(TrainerBase):
             raise NotImplementedError(
                 f"compute_dtype {exp.train.compute_dtype!r}: the port trains in "
                 "float32 only; bf16 training is ROADMAP Queue 1 item 16")
-        model_class(exp.model.name)  # an unknown or unported prior raises here
+        complex_prior_class(exp.model.name)  # an unknown or a non-complex model raises
         self.x0_leak_drop = float(diff.x0_leak_drop)
         if self.x0_leak_drop and diff.predict != "x0":
             raise ValueError("x0_leak_drop requires predict='x0'")

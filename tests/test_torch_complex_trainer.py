@@ -293,8 +293,10 @@ def test_trainer_refuses_what_is_not_ported(corpus, tmp_path):
 
     exp = _exp(tcfg, "GCRN")
     run = tcfg.RunConfig(assets=str(tmp_path), data_root=corpus)
-    for bad, error in ((dataclasses.replace(exp, model=tcfg.ModelConfig("GRN")),
-                        NotImplementedError),
+    # GRN (a magnitude model) and DiffWave are no complex-spectrum priors
+    for bad, error in ((dataclasses.replace(exp, model=tcfg.ModelConfig("GRN")), ValueError),
+                       (dataclasses.replace(exp, model=tcfg.ModelConfig("DiffWave")),
+                        ValueError),
                        (dataclasses.replace(exp, train=tcfg.TrainConfig(
                            compute_dtype="bfloat16")), NotImplementedError),
                        (dataclasses.replace(exp, model=tcfg.ModelConfig("nope")), KeyError)):
@@ -324,9 +326,11 @@ def test_mag_loss_gradient_at_zero_bins():
 
 
 def test_servers_need_a_card_and_serve_other_priors_in_f32_only(monkeypatch):
-    """No fallback to the CPU on the default device; a prior other than the
-    DiffUNet is served in float32 only (ROADMAP item 18), by the
-    ``PriorServer`` and by the DDPM's ``Enhancer``."""
+    """No fallback to the CPU on the default device.  A prior other than the
+    DiffUNet was served in float32 only until bf16 serving of every prior
+    (ROADMAP item 18) landed: now the ``PriorServer`` and the DDPM's
+    ``Enhancer`` take GCRN in bf16, through its serving copy
+    (``tests/test_torch_bf16_priors.py`` holds it to JAX)."""
     from prior_diffuse_tpu_torch.models import model_class
     from prior_diffuse_tpu_torch.models.diffunet import DiffUNet1
     from prior_diffuse_tpu_torch.serving.enhance import PriorServer
@@ -334,10 +338,10 @@ def test_servers_need_a_card_and_serve_other_priors_in_f32_only(monkeypatch):
 
     exp = _exp(tcfg, "GCRN")
     gcrn = model_class("GCRN")()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        PriorServer(gcrn, exp, device="cpu", dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        Enhancer(gcrn, DiffUNet1(), exp, device="cpu", dtype=torch.bfloat16)
+    assert PriorServer(gcrn, exp, device="cpu", dtype=torch.bfloat16).net().conv1.conv1 \
+        .product.weight.dtype == torch.bfloat16
+    enh = Enhancer(gcrn, DiffUNet1(), exp, device="cpu", dtype=torch.bfloat16)
+    assert enh.packs()[0] is None and enh.dtype == torch.bfloat16
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="card"):
         PriorServer(gcrn, exp)

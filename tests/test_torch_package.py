@@ -2,8 +2,8 @@
 
 * Every module of ``prior_diffuse_tpu_torch`` imports with jax, flax, optax,
   orbax, yaml and the JAX package blocked, the training, bf16 serving,
-  diffusion-mode and prior slices' included, and ``conf/diff.yml``,
-  ``conf/gcrn.yml`` and ``conf/dbaiat.yml`` load so: the machine with the GPU has none of
+  diffusion-mode, prior and GRN slices' included, and ``conf/diff.yml``,
+  ``conf/gcrn.yml``, ``conf/dbaiat.yml`` and ``conf/grn.yml`` load so: the machine with the GPU has none of
   them, and this test process imports jax (``conftest.py``), so an
   accidental import would pass every other test here.
 * ``chip_smoke.py`` refuses to run without a CUDA card: it exits non-zero
@@ -40,7 +40,7 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     exp = load_experiment("conf/diff.yml")
     assert (exp.train.batch_size, exp.optim_ddpm.lr) == (6, 0.0002), exp
     from prior_diffuse_tpu_torch.models import model_class
-    for conf, cls in (("gcrn", "GCRN"), ("dbaiat", "AiaComplexTransRI")):
+    for conf, cls in (("gcrn", "GCRN"), ("dbaiat", "AiaComplexTransRI"), ("grn", "GRN")):
         assert model_class(load_experiment(f"conf/{conf}.yml").model.name).__name__ == cls
     print(" ".join(names))
 """)
@@ -69,6 +69,10 @@ PRIORS_SLICE = ["models", "models.layers", "models.gcrn", "models.dbaiat", "conv
                 "serving.enhance", "serving.enhancer", "training.complex_trainer",
                 "training.ddpm_trainer", "cli"]
 
+# the modules of GRN with MagTrainer, DiffWave and the bf16 serving of every prior
+GRN_SLICE = ["models.grn", "models.diffwave", "models", "convert", "training.base",
+             "training.mag_trainer", "serving.enhance", "serving.enhancer", "cli"]
+
 
 def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
@@ -76,8 +80,9 @@ def test_port_imports_without_jax():
                           env={**os.environ, "PYTHONPATH": ROOT})
     assert proc.returncode == 0, proc.stderr
     walked = set(proc.stdout.split())
-    assert len(walked) >= 47  # every module was walked
-    missing = [m for m in TRAINING_SLICE + BF16_SERVING_SLICE + MODES_SLICE + PRIORS_SLICE
+    assert len(walked) >= 50  # every module was walked
+    missing = [m for m in (TRAINING_SLICE + BF16_SERVING_SLICE + MODES_SLICE + PRIORS_SLICE
+                           + GRN_SLICE)
                if f"prior_diffuse_tpu_torch.{m}" not in walked]
     assert not missing, missing
 

@@ -30,7 +30,8 @@ from prior_diffuse_tpu.models import dbaiat as jdb
 from prior_diffuse_tpu.models import gcrn as jgcrn
 from prior_diffuse_tpu.models import layers as jl
 from prior_diffuse_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
-from prior_diffuse_tpu_torch.models import MODELS, dbaiat, gcrn, layers, model_class
+from prior_diffuse_tpu_torch.models import (MODELS, complex_prior_class, dbaiat, gcrn, layers,
+                                            model_class)
 
 # two torch threads a worker process: see test_torch_trainer.py
 torch.set_num_threads(min(2, torch.get_num_threads()))
@@ -101,9 +102,10 @@ def test_model_table_holds_the_jax_registry():
     from prior_diffuse_tpu.registry import MODELS as JMODELS
 
     assert sorted(MODELS) == JMODELS.names()
-    for name in ("GRN", "DiffWave"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model_class(name)
+    for name in ("GRN", "DiffWave"):  # ported; neither is a complex-spectrum prior
+        assert model_class(name) is MODELS[name] and MODELS[name].__name__ == name
+        with pytest.raises(ValueError, match="not a complex-spectrum prior"):
+            complex_prior_class(name)
     with pytest.raises(KeyError):
         model_class("nope")
 

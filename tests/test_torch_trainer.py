@@ -14,8 +14,9 @@ on the CPU (where every kernel wrapper takes its plain version):
 * ``compare_complex`` and ``PlateauController`` equal the JAX package's;
 * ``cli.main`` trains one epoch and ``--generate`` writes one finite wav
   per test utterance at its input length; what the port does not run
-  yet (``MagTrainer``, the GRN prior, ``--draw``, ...) raises
-  ``NotImplementedError``.
+  yet (``--draw``, ``--profile-steps``, ``--wandb``, bf16 training)
+  raises ``NotImplementedError``; a model of the wrong kind (GRN as the
+  DDPM's prior, ``MagTrainer`` with another model) ``ValueError``.
 """
 
 import dataclasses
@@ -239,7 +240,8 @@ def test_eval_needs_a_cv_batch(corpus, tmp_path):
     # what the port does not train yet
     (dataclasses.replace(_exp(), train=tcfg.TrainConfig(compute_dtype="bfloat16")),
      NotImplementedError),
-    (dataclasses.replace(_exp(), model=tcfg.ModelConfig(name="GRN")), NotImplementedError),
+    # a magnitude model is not a complex-spectrum prior (MagTrainer trains GRN)
+    (dataclasses.replace(_exp(), model=tcfg.ModelConfig(name="GRN")), ValueError),
 ], ids=["deltamu", "conditional", "deltamu-leak_drop", "deltamu-cond_noisy", "bf16", "grn"])
 def test_trainer_refuses_what_is_not_ported(exp, error, tmp_path):
     with pytest.raises(error):
@@ -277,9 +279,14 @@ def test_cli_trains_then_generates(corpus, tmp_path, root_logging):
         assert y.shape == x.shape and np.isfinite(y).all() and np.abs(y).max() > 0
 
 
-@pytest.mark.parametrize("extra", [
-    ["--draw"], ["--profile-steps", "3"], ["--wandb"], ["--trainer", "MagTrainer"],
+@pytest.mark.parametrize("extra,error,match", [
+    (["--draw"], NotImplementedError, "ROADMAP"),
+    (["--profile-steps", "3"], NotImplementedError, "ROADMAP"),
+    (["--wandb"], NotImplementedError, "ROADMAP"),
+    # MagTrainer is ported (tests/test_torch_grn.py); it takes GRN, not
+    # conf/diff.yml's DiffUNet
+    (["--trainer", "MagTrainer"], ValueError, "MagTrainer trains GRN"),
 ], ids=["draw", "profile", "wandb", "trainer"])
-def test_cli_refuses_what_is_not_ported(extra, tmp_path, root_logging):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_cli_refuses_what_is_not_ported(extra, error, match, tmp_path, root_logging):
+    with pytest.raises(error, match=match):
         cli.main(["--assets", str(tmp_path), "--device", "cpu", *extra])
