@@ -13,9 +13,13 @@ Phases (each passes or ends the script with a non-zero exit):
    ``[8, 48000]``, K2 ISTFT on its spectrum and on a seeded random
    spectrum ``[8, 301, 161, 2]`` whose DC and Nyquist bins have imaginary
    parts (as the DDPM's estimate has), K3 at the five encoder stages of
-   both nets at T = 301 with a per-batch bias, in f32 and (K3-bf16) in
-   bf16, and K3-bf16 on a stage whose gate halves cancel, where a chain that
-   kept y in bf16 must miss the bound; times from CUDA events after
+   both nets at T = 301 with a per-batch bias, in f32 and (K3-bf16, the
+   whole stage with stage 2-5's conv1 on the 64-channel input) in bf16,
+   each stage's device ms, graph ms and bound, and the bf16 encoder with
+   its glue (``encoder_fused``: device ms, graph ms, launches); K3-bf16 on
+   a stage whose conv1 is an exact embedding and whose gate halves cancel,
+   where a chain that kept y in bf16 must miss the bound; times from CUDA
+   events after
    warm-up, device times from ``torch.profiler`` and from CUDA-graph
    replays; K1 and K2 timed in turns against their library yardsticks
    (``torch.stft``, ``torch.istft``), and marked slower on device where
@@ -333,10 +337,9 @@ def istft_bound(b: int, t: int, length: int) -> dict:
 
 
 def enc_stage_work(xin, ops, pad: int) -> tuple:
-    """(operations, bytes) of one encoder stage: per output row the window
-    product [K] x [K, 64], the two 32 x 32 gate blocks and W2 [32, 64];
-    the stage input, operands, per-batch bias and output once each, at
-    their element sizes (bf16 input, output and product weights in bf16)."""
+    """(operations, bytes) of one f32 encoder stage: per output row the
+    window product [K] x [K, 64], the two 32 x 32 gate blocks and W2 [32,
+    64]; the stage input, operands, per-batch bias and output once each."""
     b, tin, f, c = xin.shape
     k = ops["kernel_f"]
     rows = b * (tin - 1 + pad) * ((f - k) // 2 + 1)
@@ -344,6 +347,26 @@ def enc_stage_work(xin, ops, pad: int) -> tuple:
     operands = sum(ops[n].numel() * ops[n].element_size()
                    for n in ("wmain", "wg", "bg", "w2", "b2", "alpha"))
     nbytes = xin.element_size() * (xin.numel() + rows * 64) + operands + 4 * b * 64
+    return flops, nbytes
+
+
+def enc_stage_bf16_work(x, ops, *biases) -> tuple:
+    """(operations, bytes) of one whole bf16 encoder stage on its input ``x
+    [B, T, F, C]`` and per-batch ``biases`` (a broadcast one counted once):
+    the f32 stage's products plus, at stages 2-5, conv1 [64] x [64, 32] per
+    input pixel; the input (64 channels at stages 2-5), the output, the
+    product weights, biases and alpha once each."""
+    b, t, f, c = x.shape
+    k = ops["kernel_f"]
+    rows = b * t * ((f - k) // 2 + 1)
+    flops = rows * 2 * (2 * k * min(c, 32) * 64 + 2 * 32 * 32 + 32 * 64)
+    weights = [ops[n] for n in ("wmain", "wg", "bg", "w2", "b2", "alpha")]
+    if ops["pre"] is not None:
+        flops += b * t * f * 2 * 64 * 32
+        weights.append(ops["pre"][0])
+    nbytes = (2 * (x.numel() + rows * 64) + sum(w.numel() * w.element_size() for w in weights)
+              + sum(4 * (v.shape[1] if v.stride(0) == 0 else v.numel())
+                    for v in biases if v is not None))
     return flops, nbytes
 
 
@@ -464,7 +487,7 @@ def plain_versions():
             mock.patch.object(kstft, "istft",
                               lambda spec, length: kstft.istft_plain(spec, length=length)), \
             mock.patch.object(convblock, "enc_stage", convblock.enc_stage_plain), \
-            mock.patch.object(convblock, "enc_stage_bf16", convblock.enc_stage_plain):
+            mock.patch.object(convblock, "enc_stage_bf16", convblock.enc_stage_bf16_plain):
         yield
 
 
@@ -557,12 +580,14 @@ def check_kernels(device, nets):
 
 
 def check_bf16_keeps_y_f32(device) -> None:
-    """K3-bf16 on a serving-size stage-2 input whose left and right window
-    halves carry biases of +48 and -48 under constant gates (wg = 0): y is
-    large and the cross gate small.  Inputs and weights on coarse binary
-    grids make y exact in f32 in any summation order.  The kernel must meet
-    its bound against the plain version, and a chain that rounds y to bf16
-    before the combine must miss it."""
+    """K3-bf16 on a serving-size stage-2 input of 64 channels whose conv1 is
+    an exact embedding (W1 picks channels 0-31, bias1 = 0, so conv1's
+    output is those channels, and its pad frame zeros), and whose left and
+    right window halves carry biases of +48 and -48 under constant gates
+    (wg = 0): y is large and the cross gate small.  Inputs and weights on
+    coarse binary grids make y exact in f32 in any summation order.  The
+    kernel must meet its bound against the plain version, and a chain that
+    rounds y to bf16 before the combine must miss it."""
     import torch
 
     from prior_diffuse_tpu_torch.ops.cuda import convblock as cb
@@ -570,20 +595,28 @@ def check_bf16_keeps_y_f32(device) -> None:
     g = torch.Generator(device=device).manual_seed(13)
     grid = lambda shape, n, scale: (torch.randint(-n, n + 1, shape, generator=g,
                                                   device=device) / scale).bfloat16()
-    ops = {"kernel_f": 3, "pre": None, "wcsum": None, "wmain": grid((192, 64), 4, 16.0),
-           "wg": torch.zeros(64, 64, device=device, dtype=torch.bfloat16),
-           "bg": torch.zeros(64, device=device), "w2": grid((32, 64), 8, 16.0),
-           "b2": torch.zeros(64, device=device),
-           "alpha": torch.tensor([0.25], device=device)}
-    x = grid((BATCH, T_FRAMES + 1, 79, 32), 8, 8.0)
+    w1 = torch.zeros(64, 32, device=device, dtype=torch.bfloat16)
+    w1[torch.arange(32), torch.arange(32)] = 1.0
+    ops = cb.pack_wgmma({
+        "kernel_f": 3, "pre": (w1, torch.zeros(32, device=device)), "wcsum": None,
+        "wmain": grid((192, 64), 4, 16.0),
+        "wg": torch.zeros(64, 64, device=device, dtype=torch.bfloat16),
+        "bg": torch.zeros(64, device=device), "w2": grid((32, 64), 8, 16.0),
+        "b2": torch.zeros(64, device=device), "alpha": torch.tensor([0.25], device=device)})
+    x = grid((BATCH, T_FRAMES, 79, 64), 8, 8.0)
     bias_b = torch.cat([torch.full((BATCH, 32), 48.0, device=device),
                         torch.full((BATCH, 32), -48.0, device=device)], dim=1)
-    want = cb.enc_stage_plain(x, ops, bias_b, 0)
+    bias1 = torch.zeros(BATCH, 32, device=device)
+    want = cb.enc_stage_bf16_plain(x, ops, bias_b, bias1)
     expect_close(f"K3-bf16 stage 2 {tuple(x.shape)}, cancelling gate halves",
-                 cb.enc_stage_bf16(x, ops, bias_b, 0), want, KERNEL_BF16_RTOL)
-    # the plain chain with y rounded to bf16 before the cross gate
-    t, fo = x.shape[1] - 1, (x.shape[2] - 3) // 2 + 1
-    col = torch.cat([x[:, kt:kt + t, kf:kf + 2 * (fo - 1) + 1:2]
+                 cb.enc_stage_bf16(x, ops, bias_b, bias1), want, KERNEL_BF16_RTOL)
+    # the plain chain with y rounded to bf16 before the cross gate, on the
+    # padded conv1 output
+    xin = cb.conv1_input(x, w1, bias1)
+    if not torch.equal(xin[:, 1:], x[..., :32]) or bool(xin[:, 0].any()):
+        fail("the embedding conv1 is not exact")
+    t, fo = xin.shape[1] - 1, (xin.shape[2] - 3) // 2 + 1
+    col = torch.cat([xin[:, kt:kt + t, kf:kf + 2 * (fo - 1) + 1:2]
                      for kt in range(2) for kf in range(3)], dim=-1).float()
     y = (col @ ops["wmain"].float() + bias_b[:, None, None]).bfloat16().float()
     m = y @ ops["wg"].float() + ops["bg"]
@@ -600,26 +633,35 @@ def check_encoder(name, packed, x, temb):
     """K3 against its plain version at the five stages of one encoder, from
     its input ``x [B, T, 161, C]``; returns the largest error and a row of
     the kernel's and plain version's times, its device time and its
-    bounds, summed over the stages."""
+    bounds, summed over the stages (bf16: each stage's device and graph ms
+    and bound, and the five stages with their glue, ``encoder_fused``)."""
     from prior_diffuse_tpu_torch.ops.cuda import convblock as cb
 
     import torch
 
     bf16 = packed[0][0]["wmain"].dtype == torch.bfloat16
-    kernel = cb.enc_stage_bf16 if bf16 else cb.enc_stage
     label, rtol, peak = ("K3-bf16", KERNEL_BF16_RTOL, PEAK_BF16) if bf16 else (
         "K3", KERNEL_RTOL, PEAK_F32)
     worst, ms_sum, plain_sum, dev_sum, graph_sum, flops, nbytes = (0.0,) * 7
+    stages = {"stage_device_ms": [], "stage_graph_ms": [], "stage_bound_ms": []}
+    x0 = x
     for i, (ops, tp) in enumerate(packed, start=1):
-        xin, bias_b, pad = cb.stage_inputs(x, ops, tp, temb)
-        want = cb.enc_stage_plain(xin, ops, bias_b, pad)
-        err = expect_close(f"{label} {name} stage {i} {tuple(xin.shape)} pad={pad}",
-                           kernel(xin, ops, bias_b, pad), want, rtol)
-        ms = cuda_ms(lambda: kernel(xin, ops, bias_b, pad))
-        plain_ms = cuda_ms(lambda: cb.enc_stage_plain(xin, ops, bias_b, pad))
-        dev = device_ms(lambda: kernel(xin, ops, bias_b, pad))
-        gms = graph_ms(lambda: kernel(xin, ops, bias_b, pad))
-        f, nb = enc_stage_work(xin, ops, pad)
+        if bf16:  # the whole stage, conv1 included, on the last stage's output
+            args = (x, ops, *cb.stage_biases(x, ops, tp, temb))
+            kernel, plain = cb.enc_stage_bf16, cb.enc_stage_bf16_plain
+            f, nb = enc_stage_bf16_work(*args)
+        else:
+            xin, bias_b, pad = cb.stage_inputs(x, ops, tp, temb)
+            args = (xin, ops, bias_b, pad)
+            kernel, plain = cb.enc_stage, cb.enc_stage_plain
+            f, nb = enc_stage_work(xin, ops, pad)
+        want = plain(*args)
+        err = expect_close(f"{label} {name} stage {i} {tuple(args[0].shape)}",
+                           kernel(*args), want, rtol)
+        ms = cuda_ms(lambda: kernel(*args))
+        plain_ms = cuda_ms(lambda: plain(*args))
+        dev = device_ms(lambda: kernel(*args))
+        gms = graph_ms(lambda: kernel(*args))
         b = bound(f, nb, peak)
         print(f"    {ms:.4f} ms (device {fmt(dev)}, graph {gms:.4f}), plain {plain_ms:.4f} "
               f"ms; bound "
@@ -629,10 +671,25 @@ def check_encoder(name, packed, x, temb):
         graph_sum += gms
         dev_sum = None if dev is None or dev_sum is None else dev_sum + dev
         flops, nbytes = flops + f, nbytes + nb
+        for key, v in zip(stages, (dev, gms, b["bound_ms"])):
+            stages[key].append(v)
         x = want  # both versions see the same input at the next stage
     row = {"ms": ms_sum, "plain_ms": plain_sum, "device_ms": dev_sum, "graph_ms": graph_sum,
            **bound(flops, nbytes, peak)}
-    if not bf16:  # the 3xTF32 split does three TF32 products for each f32 one
+    if bf16:
+        # the five stages as the serving path runs them, with their glue (the
+        # time projections, the bias sums, the casts)
+        enc = lambda: cb.encoder_fused(x0, packed, temb)
+        _, launches = top_kernels(enc)
+        row.update(stages, encoder_device_ms=device_ms(enc), encoder_graph_ms=graph_ms(enc),
+                   encoder_launches=launches)
+        print(f"  {label} {name} per stage: device ms "
+              + ", ".join(fmt(v) for v in stages["stage_device_ms"]) + "; graph ms "
+              + ", ".join(f"{v:.4f}" for v in stages["stage_graph_ms"]) + "; bound ms "
+              + ", ".join(f"{v:.4f}" for v in stages["stage_bound_ms"])
+              + f"; the encoder with its glue: device {fmt(row['encoder_device_ms'])} ms, "
+              f"graph {row['encoder_graph_ms']:.4f} ms, {launches} launches", flush=True)
+    else:  # the 3xTF32 split does three TF32 products for each f32 one
         row["bound_3xtf32_ms"] = 3 * flops / PEAK_TF32 * 1e3
     return worst, row
 
@@ -678,10 +735,14 @@ def check_edge_shapes(device, nets):
                 torch.rand(b, generator=g, device=device) * 40.0).to(dtype)
             x = torch.randn(b, t_frames, 161, 2, generator=g, device=device).to(dtype)
             for i, (ops, tp) in enumerate(packed, start=1):
-                xin, bias_b, pad = cb.stage_inputs(x, ops, tp, temb)
-                x = cb.enc_stage_plain(xin, ops, bias_b, pad)
-                expect_close(f"{label} stage {i} {tuple(xin.shape)} pad={pad}",
-                             kernel(xin, ops, bias_b, pad), x, rtol)
+                if dtype == torch.bfloat16:
+                    args = (x, ops, *cb.stage_biases(x, ops, tp, temb))
+                    x = cb.enc_stage_bf16_plain(*args)
+                else:
+                    xin, bias_b, pad = cb.stage_inputs(x, ops, tp, temb)
+                    args = (xin, ops, bias_b, pad)
+                    x = cb.enc_stage_plain(*args)
+                expect_close(f"{label} stage {i} {tuple(args[0].shape)}", kernel(*args), x, rtol)
 
 
 def rel_rms(got, want) -> float:

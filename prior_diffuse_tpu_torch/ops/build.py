@@ -32,7 +32,7 @@ _SIGNATURES = {
     "pdt_stft_f32": [_P, _P, _P, _I, _I, _I, _P],
     "pdt_istft_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pdt_enc_stage_f32": [_P] * 9 + [_I] * 9 + [_P],
-    "pdt_enc_stage_bf16": [_P] * 9 + [_I] * 9 + [_P],
+    "pdt_enc_stage_bf16": [_P] * 8 + [_I] * 10 + [_P],
 }
 
 

@@ -8,11 +8,12 @@ it on the CPU (Pallas in interpret mode):
   (predict eps/x0, fast-2/3/6/8 and full-50, sigma on/off): max|diff| <=
   2^-6 max|ref|;
 * ``TimeEmbedding`` of a bf16 ``t``;
-* the plain K3-bf16 stage against ``_chain_pallas(dtype=bf16,
+* the plain K3-bf16 chain against ``_chain_pallas(dtype=bf16,
   interpret=True)`` on the same stage input and operands, at all five
   stages of both encoders, and the whole stage (conv1 and the time
-  projection included) against ``fused_enc_stage(dtype=bf16,
-  use_pallas=False)`` on JAX's own packing: max|diff| <= 2^-7 max|ref|,
+  projection included, K3-bf16's contract) against ``fused_enc_stage(dtype=
+  bf16)`` on JAX's own packing, through XLA and through the Pallas kernel
+  in interpret mode: max|diff| <= 2^-7 max|ref|,
   one bf16 step at the top of the range; and a negative control: a chain
   that rounds ``y`` to bf16 before the cross gate misses that bound on a
   stage whose gate halves cancel;
@@ -294,14 +295,50 @@ def test_k3_bf16_keeps_y_f32_for_the_gate(geometry):
 
 
 def test_k3_bf16_wrapper_takes_plain_path_on_cpu(encoder_stages):
-    _, _, stages = encoder_stages
-    xin, bias_b, pad, ops, *_ = stages[1]
+    _, temb, stages = encoder_stages
+    ops, tp, x = stages[1][3:6]
+    bias_b, bias1 = cb.stage_biases(x, ops, tp, temb)
     before = (cb.enc_stage.launches, cb.enc_stage_bf16.launches)
-    got = cb.enc_stage_bf16(xin, ops, bias_b, pad)
-    assert torch.equal(got, cb.enc_stage_plain(xin, ops, bias_b, pad))
+    got = cb.enc_stage_bf16(x, ops, bias_b, bias1)
+    assert torch.equal(got, cb.enc_stage_bf16_plain(x, ops, bias_b, bias1))
     assert (cb.enc_stage.launches, cb.enc_stage_bf16.launches) == before
     with pytest.raises(ValueError):
         cb.pack_encoder(make_pair("DiffUNet")[2].core.en, torch.float16)
+
+
+@pytest.mark.parametrize("stage", range(1, 5), ids=[f"stage{i + 1}" for i in range(1, 5)])
+def test_k3_bf16_plain_is_stage_inputs_and_chain(encoder_stages, stage):
+    """K3-bf16's plain version on the 64-channel stage input (conv1 and its
+    pad frame inside) equals ``stage_inputs`` + ``enc_stage_plain`` bit for
+    bit, with (DiffUNet1) and without (DiffUNet) a time projection."""
+    _, temb, stages = encoder_stages
+    ops, tp, x = stages[stage][3:6]
+    assert x.shape[-1] == 64 and ops["pre"] is not None
+    bias_b, bias1 = cb.stage_biases(x, ops, tp, temb)
+    assert bias1.dtype == torch.float32 and bias1.shape == (2, 32)
+    got = cb.enc_stage_bf16_plain(x, ops, bias_b, bias1)
+    assert torch.equal(got, cb.enc_stage_plain(*stage_inputs_chain(x, ops, tp, temb)))
+
+
+def stage_inputs_chain(x, ops, tp, temb):
+    xin, bias_b, pad = cb.stage_inputs(x, ops, tp, temb)
+    return xin, ops, bias_b, pad
+
+
+@pytest.mark.parametrize("stage", range(5), ids=[f"stage{i + 1}" for i in range(5)])
+def test_k3_bf16_stage_matches_pallas_interpret(encoder_stages, stage):
+    """The whole K3-bf16 stage (``enc_stage_bf16`` on the CPU: its plain
+    version) on the port's packing against ``fused_enc_stage(dtype=bf16,
+    use_pallas=True, interpret=True)`` on JAX's, at B = 2, T = 8."""
+    _, temb, stages = encoder_stages
+    ops, tp, x, jops, jtproj = stages[stage][3:8]
+    want = jcb.fused_enc_stage(jnp.asarray(f32(x), BF16), jops, jtproj,
+                               kernel_f=cb.ENC_KERNELS[stage], dtype=BF16, tile_r=128,
+                               use_pallas=True, interpret=True)
+    with torch.no_grad():
+        got = cb.enc_stage_bf16(x, ops, *cb.stage_biases(x, ops, tp, temb))
+    err = _max_rel(got, want)
+    assert err <= KERNEL_REL, f"max|diff| {err:.3g} x max|ref| > 2^-7"
 
 
 # --------------------------------------------------- (d) the dual decoder

@@ -1,5 +1,6 @@
 """Port K3 packing and plain stage math against the JAX fused encoder (CPU),
-and K3's tile plan, index arithmetic and 3xTF32 products emulated in torch.
+and K3's tile plan, index arithmetic and 3xTF32 products emulated in torch;
+K3-bf16's staging, descriptors and plan likewise.
 
 The port packs each encoder stage from its own converted modules
 (``ops/cuda/convblock.py``) and runs the plain version of K3
@@ -281,189 +282,228 @@ def test_wrapper_takes_plain_path_on_cpu(encoders):
 
 
 # ----------------------------------------------------------------- K3 in bf16
-# csrc/enc_chain_bf16.cu at the level of each lane's registers: the
-# m16n8k16 fragment layouts of PTX (lane = 4g + t), the weights in
-# stage_frag's order, the A operand loaded as k pairs from the staged tile,
-# and the f32 accumulators packed in pairs into the next product's A.
-
-_G4 = torch.arange(32) >> 2
-_T4 = torch.arange(32) & 3
-
+# csrc/enc_chain_bf16.cu at the level of its shared-memory bytes: the TMA
+# box with the 128-byte swizzle (stages 2-5) or the cp.async pixels (stage
+# 1), the wgmma operands read through their descriptors (K-major, 128-byte
+# swizzle: the hardware XORs address bits 4-6 with bits 7-9), conv1 into
+# the pair-swizzled 32-channel tile, the ldmatrix row addresses of the
+# im2col, and the output tile staged and stored as 16-byte chunks.
 
 def _bf(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def _a_matrix(r: torch.Tensor) -> torch.Tensor:
-    """A [16, 16] from each lane's four registers of two values ``r [32, 4,
-    2]``: rows g, g + 8 at k 2t, 2t + 1, then at k 2t + 8, 2t + 9."""
-    a = torch.zeros(16, 16)
-    for i, (dr, dk) in enumerate([(0, 0), (8, 0), (0, 8), (8, 8)]):
-        for h in range(2):
-            a[_G4 + dr, 2 * _T4 + dk + h] = r[:, i, h]
-    return a
+def _sw128(addr: torch.Tensor) -> torch.Tensor:
+    """Physical byte address of a logical one in a 128-byte-swizzled region
+    (1024-byte aligned)."""
+    return addr ^ (((addr >> 7) & 7) << 4)
 
 
-def _b_matrix(f: torch.Tensor) -> torch.Tensor:
-    """B [16, 8] from each lane's fragment ``f [32, 4]``: k 2t, 2t + 1,
-    2t + 8, 2t + 9 of column g."""
-    b = torch.zeros(16, 8)
-    for i, dk in enumerate((0, 1, 8, 9)):
-        b[2 * _T4 + dk, _G4] = f[:, i]
-    return b
+def _desc_operand(mem: torch.Tensor, start: int, rows: int) -> torch.Tensor:
+    """The ``[rows, 16]`` operand a K-major SW128 descriptor at byte
+    ``start`` gives one wgmma k16 step (rows 128 bytes apart, 8-row groups
+    1024 bytes apart); ``mem`` holds bf16 values as floats, one per 2 bytes."""
+    m = torch.arange(rows)[:, None]
+    k = torch.arange(16)[None, :]
+    logical = start + (m // 8) * 1024 + (m % 8) * 128 + 2 * k
+    return mem[_sw128(logical) // 2]
 
 
-def _c_regs(d: torch.Tensor) -> torch.Tensor:
-    """A [16, 8] accumulator as each lane's c0..c3 (rows g, g + 8; cols 2t, 2t + 1)."""
-    return torch.stack([d[_G4, 2 * _T4], d[_G4, 2 * _T4 + 1],
-                        d[_G4 + 8, 2 * _T4], d[_G4 + 8, 2 * _T4 + 1]], dim=1)
+def _xs1_offset(p, c):
+    line, chunk = p >> 1, ((p & 1) << 2) | (c >> 3)
+    return line * 128 + ((chunk ^ (line & 7)) << 4) + (c & 7) * 2
 
 
-def _acc_to_a(c0: torch.Tensor, c1: torch.Tensor) -> torch.Tensor:
-    """acc_to_a: n-tiles j, j + 1 (lane registers) -> A registers, in bf16."""
-    return _bf(torch.stack([c0[:, 0:2], c0[:, 2:4], c1[:, 0:2], c1[:, 2:4]], dim=1))
-
-
-def _stage_frag(w: torch.Tensor, krows: int, ks: int, nj: int) -> torch.Tensor:
-    """stage_frag: ``[ks * nj * 32, 4]`` fragments of ``w`` (row stride 64)."""
-    e = torch.arange(ks * nj * 32)
-    lane, sj = e & 31, e >> 5
-    k = 16 * (sj // nj) + 2 * (lane & 3)
-    c = 8 * (sj % nj) + (lane >> 2)
-    at = lambda kk: torch.where(kk < krows, w[kk.clamp(max=krows - 1), c], 0.0)
-    return torch.stack([at(k), at(k + 1), at(k + 8), at(k + 9)], dim=1)
-
-
-def _mma(d: torch.Tensor, a_regs: torch.Tensor, frag: torch.Tensor) -> torch.Tensor:
-    """d (lane registers) += A B on one tile, f32 sums of bf16 products."""
-    return d + _c_regs(_a_matrix(a_regs) @ _b_matrix(frag))
-
-
-def _k3_bf16_emulate(x, ops, bias_b, pad, n_sm=132):
-    """K3-bf16 warp by warp from its tile plan: the tile staged as ``[tt +
-    1, F, CS]`` bf16 (zeros outside the input), each warp's 16 rows read
-    as k pairs through the row and pair offsets, the three products on the
-    lanes' fragments.  Returns the output and each row's write count."""
-    b, tin, f, c = x.shape
+def _k3_bf16_emulate(x, ops, bias_b, bias1, n_sm=132):
+    """K3-bf16 from its plan, tile by tile and m-tile by m-tile through its
+    shared memory; returns the output and each output row's count of
+    16-byte stores."""
+    b, t, f, c = x.shape
     kf = ops["kernel_f"]
-    t, fo = tin - 1 + pad, (f - kf) // 2 + 1
-    plan = cb.tile_plan(b, t, f, c, kf, n_sm, 2)
-    assert plan.smem == cb.smem_bytes(c, kf, f, plan.tt, 2) <= cb.SMEM_MAX
-    assert plan.tt * fo <= cb.TILE_ROWS
-    cs = cb.channel_stride(c, 2)
-    k_dim = 2 * kf * c
-    ks = -(-k_dim // 16)
-    koff = torch.zeros(8 * ks, dtype=torch.long)
-    for q in range(k_dim // 2):
-        kt, r = divmod(2 * q, kf * c)
-        koff[q] = (kt * f + r // c) * cs + r % c
-    w = lambda name: ops[name].float()
-    wf = _stage_frag(w("wmain"), k_dim, ks, 8)
-    glf = _stage_frag(w("wg"), 32, 2, 4)
-    grf = _stage_frag(w("wg")[32:, 32:], 32, 2, 4)
-    w2f = _stage_frag(w("w2"), 32, 2, 8)
-    frag = lambda fr, s, nj, j: fr[(s * nj + j) * 32:(s * nj + j + 1) * 32]
-    # init_acc: lane registers c0..c3 of n-tile j hold v[8j + 2t], v[8j + 2t + 1] twice
-    init = lambda v, n: [torch.stack([v[8 * j + 2 * _T4], v[8 * j + 2 * _T4 + 1]] * 2, dim=1)
-                         for j in range(n)]
+    tma = c == 64
+    fo = (f - kf) // 2 + 1
+    plan = cb.bf16_plan(b, t, f, c, kf, n_sm)
+    assert plan.smem == cb.bf16_smem_bytes(c, kf, f, plan.tt) <= cb.SMEM_MAX
+    k_dim = 2 * kf * (32 if tma else c)
+    ks_n = -(-k_dim // 16)
+    wmem = ops["wpack"].float()
+    w_gate = -(-k_dim // 64) * 8192
+    w_2, w_1 = w_gate + 8192, w_gate + 16384
+    assert wmem.numel() * 2 == w_1 + (4096 if tma else 0)
     per_utt = -(-t // plan.tt)
+    assert plan.tiles == b * per_utt and plan.grid == min(plan.tiles, n_sm)
     out = torch.full((b, t * fo, 64), float("nan"))
     writes = torch.zeros(b, t * fo, dtype=torch.long)
+    xf = x.float()
     for tile in range(plan.tiles):
         bi, t0 = tile // per_utt, (tile % per_utt) * plan.tt
-        buf = torch.zeros(plan.tt + 1, f, cs)
-        for j in range(plan.tt + 1):
-            if 0 <= t0 - pad + j < tin:
-                buf[j, :, :c] = x[bi, t0 - pad + j].float()
-        buf = buf.reshape(-1)
         rows = min(plan.tt, t - t0) * fo
-        for warp in range(cb.WARPS):
-            if warp * 16 >= rows:
-                continue
-            r = warp * 16 + torch.stack([_G4, _G4 + 8])  # [2, 32]: rows g, g + 8
-            r = torch.where(r < rows, r, 0)
-            off = ((r // fo) * f + 2 * (r % fo)) * cs
-            y = init(bias_b[bi], 8)
-            for s in range(ks):
-                k0, k1 = koff[8 * s + _T4], koff[8 * s + 4 + _T4]
-                pairs = [off[h] + kk for kk in (k0, k1) for h in (0, 1)]
-                a = torch.stack([torch.stack([buf[p], buf[p + 1]], dim=1) for p in pairs], dim=1)
-                y = [_mma(y[j], a, frag(wf, s, 8, j)) for j in range(8)]
-            ml, mr = init(ops["bg"], 4), init(ops["bg"][32:], 4)
-            for s in range(2):
-                a = _acc_to_a(y[2 * s], y[2 * s + 1])
-                ml = [_mma(ml[j], a, frag(glf, s, 4, j)) for j in range(4)]
-                a = _acc_to_a(y[4 + 2 * s], y[5 + 2 * s])
-                mr = [_mma(mr[j], a, frag(grf, s, 4, j)) for j in range(4)]
-            comb = [y[j] * torch.sigmoid(mr[j]) + y[j + 4] * torch.sigmoid(ml[j])
-                    for j in range(4)]
-            o = init(ops["b2"], 8)
-            for s in range(2):
-                a = _acc_to_a(comb[2 * s], comb[2 * s + 1])
-                o = [_mma(o[j], a, frag(w2f, s, 8, j)) for j in range(8)]
-            for h in range(2):
-                row = warp * 16 + _G4 + 8 * h
-                keep = row < rows
-                for j in range(8):
-                    for e in range(2):
-                        v = o[j][:, 2 * h + e]
-                        v = _bf(torch.where(v >= 0, v, ops["alpha"] * v))
-                        out[bi, t0 * fo + row[keep], 8 * j + 2 * _T4[keep] + e] = v[keep]
-                writes[bi, t0 * fo + row[keep]] += 1
+        pixels = (plan.tt + 1) * f
+        # the box / staged frames t0 - 1 .. t0 + tt - 1, zeros outside [0, T)
+        frames = torch.zeros(plan.tt + 1, f, c)
+        for j in range(plan.tt + 1):
+            if 0 <= t0 - 1 + j < t:
+                frames[j] = xf[bi, t0 - 1 + j]
+        if tma:
+            slot = torch.full((-(-pixels // 64) * 64 * 64,), float("nan"))  # unwritten rows
+            p = torch.arange(pixels)[:, None]
+            k = torch.arange(64)[None, :]
+            slot[(p * 128 + (((k // 8) ^ (p % 8)) << 4) + (k % 8) * 2) // 2] = frames.reshape(-1, 64)
+            xs1 = torch.full((-(-pixels // 2) * 64,), float("nan"))
+            for i in range(-(-pixels // 64)):  # conv1, 64 pixels a wgmma m-tile
+                d = sum(_desc_operand(slot, i * 8192 + ks * 32, 64)
+                        @ _desc_operand(wmem, w_1 + ks * 32, 32).t() for ks in range(4))
+                px = torch.arange(i * 64, i * 64 + 64)
+                keep = px < pixels
+                ch = torch.arange(32)[None, :]
+                xs1[_xs1_offset(px[keep][:, None], ch) // 2] = _bf(_bf(d[keep]) + bias1[bi])
+            mem = xs1
+        else:
+            mem = frames.reshape(-1)  # 4 bytes a pixel: elements 2e, 2e + 1
+        for mt in range(-(-rows // 64)):
+            a = torch.zeros(64, ks_n * 16)
+            for wl in range(4):
+                if tma:  # ldmatrix x4: lane 8q + rr gives row rr of matrix q
+                    for lane in range(32):
+                        r = mt * 64 + wl * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)
+                        r = r if r < rows else 0
+                        base = (r // fo) * f + 2 * (r % fo)
+                        for st in range(ks_n):
+                            kt, kfi = divmod(st >> 1, kf)
+                            addr = _xs1_offset(base + kt * f + kfi, 16 * (st & 1) + 8 * (lane >> 4))
+                            row = wl * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)
+                            col = 16 * st + 8 * (lane >> 4)
+                            a[row, col:col + 8] = mem[addr // 2:addr // 2 + 8]
+                else:  # 32-bit loads: k pair q is tap q, pairs past K read the origin
+                    for rr in range(16):
+                        r = mt * 64 + wl * 16 + rr
+                        r = r if r < rows else 0
+                        off = ((r // fo) * f + 2 * (r % fo)) * 4
+                        for q in range(ks_n * 8):
+                            toff = ((q // kf) * f + q % kf) * 4 if q < 2 * kf else 0
+                            a[wl * 16 + rr, 2 * q:2 * q + 2] = mem[(off + toff) // 2:(off + toff) // 2 + 2]
+            y = sum(a[:, 16 * st:16 * st + 16]
+                    @ _desc_operand(wmem, (st >> 2) * 8192 + (st & 3) * 32, 64).t()
+                    for st in range(ks_n)) + bias_b[bi]
+            m = sum(_bf(y[:, 16 * st:16 * st + 16])
+                    @ _desc_operand(wmem, w_gate + st * 32, 64).t() for st in range(4)) + ops["bg"]
+            comb = y[:, :32] * torch.sigmoid(m[:, 32:]) + y[:, 32:] * torch.sigmoid(m[:, :32])
+            o = sum(_bf(comb[:, 16 * st:16 * st + 16])
+                    @ _desc_operand(wmem, w_2 + st * 32, 64).t() for st in range(2)) + ops["b2"]
+            o = _bf(torch.where(o >= 0, o, ops["alpha"] * o))
+            # stage: 16-byte chunk j of row rr at chunk j ^ (rr % 8); then 16-byte stores
+            stage = torch.empty(64 * 64)
+            rr = torch.arange(64)[:, None]
+            col = torch.arange(64)[None, :]
+            stage[rr * 64 + (((col // 8) ^ (rr % 8)) * 8) + col % 8] = o
+            for q in range(512):
+                r8, ch = q >> 3, q & 7
+                if r8 < min(64, rows - mt * 64):
+                    row = t0 * fo + mt * 64 + r8
+                    out[bi, row, ch * 8:ch * 8 + 8] = stage[r8 * 64 + (ch ^ (r8 % 8)) * 8:][:8]
+                    writes[bi, row] += 1
     return out.reshape(b, t, fo, 64), writes
+
+
+def _bf16_stage_operands(stage, seed):
+    """bf16 operands of stage ``stage`` (0-4) from a seed, packed for the
+    kernel, with a random conv1 (stages 2-5)."""
+    f, c, kf, _ = STAGES[stage]
+    ops, g = _stage_operands(c, kf, seed)
+    ops = {**ops, "wmain": ops["wmain"].bfloat16(), "wg": ops["wg"].bfloat16(),
+           "w2": ops["w2"].bfloat16(), "pre": None}
+    cin = 2 if stage == 0 else 64
+    if stage:
+        ops["pre"] = ((torch.randn(64, 32, generator=g) * 0.2).bfloat16(),
+                      torch.randn(32, generator=g))
+    return f, cin, cb.pack_wgmma(ops), g
 
 
 @pytest.mark.parametrize("stage", range(5), ids=[f"stage{i + 1}" for i in range(5)])
 @pytest.mark.parametrize("t_frames", [3, 7])
-def test_k3_bf16_lanes_match_plain(stage, t_frames):
-    """K3-bf16's fragment layouts, offsets and tiling, emulated lane by
-    lane with several tiles and a partial last one (n_sm = 2), equal
-    ``enc_stage_plain`` in bf16 up to summation order (an occasional bf16
-    step of the output), and every output row is written once (8 writes
-    a row: one per n-tile pair of columns, counted once per lane row)."""
-    f, c, kf, pad = STAGES[stage]
-    ops, g = _stage_operands(c, kf, 20 + stage)
-    ops = {**ops, "wmain": ops["wmain"].bfloat16(), "wg": ops["wg"].bfloat16(),
-           "w2": ops["w2"].bfloat16()}
+def test_k3_bf16_staging_matches_plain(stage, t_frames):
+    """K3-bf16's staging and addressing, emulated with several tiles and a
+    partial last one (n_sm = 2): the TMA box from frame t0 - 1 (zero-filled
+    before frame 0, so conv1 gives the pad frame bf16(bias1)), conv1 and
+    every product through their wgmma descriptors, the ldmatrix im2col
+    addresses and the staged output; equals ``enc_stage_bf16_plain`` up to
+    summation order (an occasional bf16 step of the output), and every
+    output row is stored once."""
+    f, cin, ops, g = _bf16_stage_operands(stage, 20 + stage)
     b = 2
-    x = torch.randn(b, t_frames + 1 - pad, f, c, generator=g).bfloat16()
+    x = torch.randn(b, t_frames, f, cin, generator=g).bfloat16()
     bias_b = torch.randn(b, 64, generator=g)
-    want = cb.enc_stage_plain(x, ops, bias_b, pad)
-    got, writes = _k3_bf16_emulate(x, ops, bias_b, pad, n_sm=2)
-    assert bool((writes == 1).all())
+    bias1 = torch.randn(b, 32, generator=g) if stage else None
+    want = cb.enc_stage_bf16_plain(x, ops, bias_b, bias1)
+    got, writes = _k3_bf16_emulate(x, ops, bias_b, bias1, n_sm=2)
+    assert bool((writes == 8).all())  # eight 16-byte chunks a row
     _close_rel(got.numpy(), want.float().numpy(), 2.0 ** -7)
 
 
-def test_k3_bf16_lane_layouts_invert():
-    """The emulation's fragment maps are one-to-one: B from stage_frag is
-    W's k16 x n8 tile, and A registers packed from two accumulator tiles
-    are the accumulators' columns in natural k order."""
-    w = torch.randn(40, 64, generator=torch.Generator().manual_seed(0))
-    fr = _stage_frag(w, 40, 3, 8)
-    for s in range(3):
-        for j in range(8):
-            tile = torch.zeros(16, 8)
-            rows = w[16 * s:min(16 * s + 16, 40), 8 * j:8 * j + 8]
-            tile[:rows.shape[0]] = rows
-            assert torch.equal(_b_matrix(fr[(s * 8 + j) * 32:(s * 8 + j + 1) * 32]), tile)
-    d = _bf(torch.randn(16, 16, generator=torch.Generator().manual_seed(1)))
-    a = _acc_to_a(_c_regs(d[:, :8]), _c_regs(d[:, 8:]))
-    assert torch.equal(_a_matrix(a), d)
+# (K, N) of the operands K3-bf16 packs: stage 1's window, stage 2-5's window,
+# the block-diagonal gate, W2, conv1's W1
+PACK_SHAPES = [(20, 64), (192, 64), (64, 64), (32, 64), (64, 32)]
+
+
+@pytest.mark.parametrize("shape", PACK_SHAPES, ids=[f"{k}x{n}" for k, n in PACK_SHAPES])
+def test_wgmma_image_inverts(shape):
+    """The host packing into the swizzled wgmma B layout, read back through
+    the descriptors the kernel builds (one per k16 step: atom s // 4, byte
+    32 (s % 4)), gives W (zeros past K); its bytes are whole 1024-byte
+    swizzle atoms."""
+    k, n = shape
+    w = torch.randn(k, n, generator=torch.Generator().manual_seed(k + n)).bfloat16()
+    img = cb.wgmma_image(w)
+    assert img.dtype == torch.bfloat16 and (img.numel() * 2) % 1024 == 0
+    assert img.numel() == -(-k // 64) * 64 * n
+    mem = img.float()
+    steps = -(-k // 16)
+    back = torch.cat([_desc_operand(mem, (s // 4) * n * 128 + (s % 4) * 32, n).t()
+                      for s in range(steps)])
+    want = torch.zeros(steps * 16, n)
+    want[:k] = w.float()
+    assert torch.equal(back, want)
 
 
 @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=[f"{b}x{t}" for b, t in PLAN_SHAPES])
 @pytest.mark.parametrize("stage", range(5), ids=[f"stage{i + 1}" for i in range(5)])
-def test_bf16_tile_plan_covers_rows_and_fits(shape, stage):
-    """K3-bf16's plan (``elem=2``): every row once, a tile within the
-    block's rows, shared memory within 227 KB, and its bytes are the bf16
-    layout's (8-byte fragments, k16 steps, the padded channel stride)."""
+def test_bf16_plan_covers_rows_and_fits(shape, stage):
+    """K3-bf16's plan: every output row of every utterance in exactly one
+    64-row m-tile of one tile, a TMA box of at most 256 frames, shared
+    memory within 227 KB and equal to the kernel's layout; at the serving
+    shape every stage keeps at least 128 of the 132 SMs busy and, from
+    stage 2 on, both warpgroups of a block have an m-tile."""
     b, t = shape
     f, c, kf, _ = STAGES[stage]
+    cin = 2 if stage == 0 else 64
     fo = (f - kf) // 2 + 1
-    plan = cb.tile_plan(b, t, f, c, kf, 132, 2)
-    k16 = -(-2 * kf * c // 16)
-    cs = 2 if c == 2 else 40
-    assert plan.smem == 256 * (8 * k16 + 32) + 32 * k16 + 2 * (plan.tt + 1) * f * cs
-    assert plan.smem <= cb.SMEM_MAX and 1 <= plan.tt * fo <= cb.TILE_ROWS
+    plan = cb.bf16_plan(b, t, f, cin, kf, 132)
+    assert plan.smem == cb.bf16_smem_bytes(cin, kf, f, plan.tt) <= cb.SMEM_MAX == 232_448
+    assert 1 <= plan.tt <= min(t, cb.BF16_MAX_FRAMES)
     per_utt = -(-t // plan.tt)
     assert plan.tiles == b * per_utt and plan.grid == min(plan.tiles, 132)
+    writes = np.zeros((b, t * fo), np.int64)
+    for tile in range(plan.tiles):
+        bi, t0 = divmod(tile, per_utt)
+        t0 *= plan.tt
+        rows = min(plan.tt, t - t0) * fo
+        for mt in range(-(-rows // 64)):
+            lo = t0 * fo + mt * 64
+            writes[bi, lo:lo + min(64, rows - mt * 64)] += 1
+    assert (writes == 1).all()
+    if shape == (8, 301):
+        assert plan.grid >= 128
+        if stage:
+            assert -(-plan.tt * fo // 64) >= cb.BF16_WARPGROUPS
+
+
+def test_bf16_bias_batch_stride():
+    """K3-bf16 takes a per-batch bias with one row a batch or one row
+    broadcast (no copy), and refuses any other layout or type."""
+    row = torch.randn(64)
+    assert cb._batch_stride("bias_b", row.expand(3, 64), row.device, 3, 64) == 0
+    assert cb._batch_stride("bias_b", torch.randn(3, 64), row.device, 3, 64) == 64
+    for bad in (torch.randn(64, 3).t(), torch.randn(3, 64).double(), torch.randn(3, 128)[:, ::2],
+                torch.randn(2, 64)):
+        with pytest.raises(ValueError):
+            cb._batch_stride("bias_b", bad, row.device, 3, 64)

@@ -3,6 +3,7 @@
 the port and ``chip_smoke.py`` do not use them).
 
     python3 tools/kernel_probe.py k3 [--json PATH]
+    python3 tools/kernel_probe.py k3bf16 [--json PATH]
     python3 tools/kernel_probe.py k2 [--json PATH]
     python3 tools/kernel_probe.py step [--json PATH]
 
@@ -17,6 +18,15 @@ CUDA-graph replay, so the host's pace does not enter.  The kernel as
 built is timed first and last; on the first run the card's power draw and
 SM clock are read while the five stages run back to back for 2 s.  A
 patch whose text no longer occurs once in the source stops the probe.
+
+``k3bf16`` does the same for K3-bf16 (``csrc/enc_chain_bf16.cu``): the
+five whole bf16 stages of that forward (stage 2-5's conv1 inside), each
+variant taking away one part (or, first, running the gate and W2
+products on ``mma.sync`` in place of ``wgmma``, or the sigmoid with an
+IEEE ``expf`` and divide): the window product, the gate and W2
+products, the sigmoid cross gate (comb from y and m without a sigmoid),
+conv1's epilogue (its stores of the 32-channel tile), or the output
+stores.
 
 ``k2`` times K2 (``csrc/stft.cu``) at each tile it is built for (4, 8
 and 16 output rows a block, ``ops/cuda/stft.py::ISTFT_TILES``), twice in
@@ -79,6 +89,86 @@ K3_PATCHES = {
          "make_float2(y[i][j][2 * h], y[i][j][2 * h + 1])")],
     "no output stores": [
         ("if (r < rows) {", "if (r < rows && o[i][0][2 * h] == 1234.5f) {")],
+}
+# K3-bf16's gate and W2 products on mma.sync m16n8k16, B fragments by
+# ldmatrix from the same swizzled images, in place of wgmma (a variant that
+# measured slower; the kernel keeps wgmma)
+_MMA_SYNC_HELPERS = r"""// d[16 x 8] += a[16 x 16] b[16 x 8] (mma.sync m16n8k16, bf16, f32 sums) on
+// accumulator registers d[o..o+3] (the wgmma per-warp layout of n8 tile o / 4).
+__device__ __forceinline__ void mma16816(float* d, const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// mma.sync B fragments of n8 tiles j, j + 1 at k16 step s from a one-atom
+// K-major SW128 image at `img`: b[0], b[1] of tile j, b[2], b[3] of j + 1.
+__device__ __forceinline__ void ld_b(uint32_t (&b)[4], uint32_t img, int j, int s) {
+  const int lane = threadIdx.x & 31, q = lane >> 3, r = lane & 7;
+  ldmatrix_x4(b, img + (8 * (j + (q >> 1)) + r) * 128 + (((2 * s + (q & 1)) ^ r) << 4));
+}
+
+"""
+_GATE_WGMMA = r"""      fence_regs(m);
+      wgmma_fence();
+#pragma unroll
+      for (int st = 0; st < 4; ++st) wgmma_n64_rs(m, ay[st], desc_sw128(w_gate + st * 32));
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(m);
+"""
+_GATE_MMA_SYNC = r"""#pragma unroll
+      for (int j = 0; j < 8; j += 2)
+#pragma unroll
+        for (int sl = 0; sl < 2; ++sl) {
+          const int st = (j >> 2) * 2 + sl;
+          uint32_t bw[4];
+          ld_b(bw, w_gate, j, st);
+          mma16816(m + 4 * j, ay[st], bw[0], bw[1]);
+          mma16816(m + 4 * j + 4, ay[st], bw[2], bw[3]);
+        }
+"""
+_W2_WGMMA = r"""      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int st = 0; st < 2; ++st) wgmma_n64_rs(o, ac[st], desc_sw128(w_2 + st * 32));
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(o);
+"""
+_W2_MMA_SYNC = r"""#pragma unroll
+      for (int j = 0; j < 8; j += 2)
+#pragma unroll
+        for (int st = 0; st < 2; ++st) {
+          uint32_t bw[4];
+          ld_b(bw, w_2, j, st);
+          mma16816(o + 4 * j, ac[st], bw[0], bw[1]);
+          mma16816(o + 4 * j + 4, ac[st], bw[2], bw[3]);
+        }
+"""
+# variant -> [(text of csrc/enc_chain_bf16.cu, replacement)]
+K3_BF16_PATCHES = {
+    "as built": [],
+    "gate and W2 on mma.sync": [
+        ("// ------------------------------------------------------------------ math",
+         _MMA_SYNC_HELPERS + "// ------------------------------------------------------------------ math"),
+        (_GATE_WGMMA, _GATE_MMA_SYNC), (_W2_WGMMA, _W2_MMA_SYNC)],
+    "sigmoid by IEEE expf and divide": [
+        ("return __fdividef(1.f, 1.f + __expf(-v));", "return 1.f / (1.f + expf(-v));")],
+    "no window product": [
+        ("      for (int st = 0; st < KS; ++st)\n        wgmma_n64_rs(y,",
+         "      for (int st = 0; st < 0; ++st)\n        wgmma_n64_rs(y,")],
+    "no gate and W2 products": [
+        ("for (int st = 0; st < 4; ++st) wgmma_n64_rs(m,", "for (int st = 0; st < 0; ++st) wgmma_n64_rs(m,"),
+        ("for (int st = 0; st < 2; ++st) wgmma_n64_rs(o,", "for (int st = 0; st < 0; ++st) wgmma_n64_rs(o,")],
+    "no sigmoid (comb = y_l + y_r + m)": [
+        ("comb[e] = y[e] * sigmoid(m[e + 16]) + y[e + 16] * sigmoid(m[e]);",
+         "comb[e] = y[e] + y[e + 16] + m[e];")],
+    "no conv1 epilogue stores": [("if (px < pixels) {", "if (px < 0) {")],
+    "no output stores": [("if (rr < valid) {", "if (rr < valid - 64) {")],
 }
 # variant -> [(text of csrc/stft.cu, replacement)]
 K2_PATCHES = {
@@ -176,6 +266,34 @@ def k3_probe(card: str) -> list:
             results.append({"variant": name, "stage_ms": ms, "ms": sum(ms), **power})
             print(f"{name}: {sum(ms):.4f} ms (stages " + ", ".join(f"{v:.4f}" for v in ms)
                   + f"){'; ' + json.dumps(power) if power else ''}; card {card}", flush=True)
+    return results
+
+
+def k3_bf16_probe(card: str) -> list:
+    """Each K3_BF16_PATCHES variant on the five bf16 stages of one DiffUNet1
+    forward at batch 8 x 3 s, each stage by CUDA-graph replay."""
+    from prior_diffuse_tpu_torch.models.diffunet import DiffUNet1
+    from prior_diffuse_tpu_torch.ops.cuda import convblock as cb
+
+    torch.manual_seed(0)
+    net = DiffUNet1().cuda().eval()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(8, 301, 161, 2, generator=g, device="cuda").bfloat16()
+    temb = net.time_embedding(torch.rand(8, generator=g, device="cuda") * 40.0).bfloat16()
+    stages = []
+    for ops, tp in cb.pack_encoder(net.core.en, torch.bfloat16):
+        stages.append((x, ops, *cb.stage_biases(x, ops, tp, temb)))
+        x = cb.enc_stage_bf16_plain(*stages[-1])
+    results = []
+    with tempfile.TemporaryDirectory(prefix="k3_bf16_probe_") as work:
+        for i, name in enumerate(list(K3_BF16_PATCHES) + ["as built"]):
+            lib = patched_library(f"{i} {name}", "enc_chain_bf16.cu", K3_BF16_PATCHES[name],
+                                  Path(work))
+            with mock.patch.object(build, "library", lambda: lib):
+                ms = [chip_smoke.graph_ms(lambda s=s: cb.enc_stage_bf16(*s)) for s in stages]
+            results.append({"variant": name, "stage_ms": ms, "ms": sum(ms)})
+            print(f"{name}: {sum(ms):.4f} ms (stages " + ", ".join(f"{v:.4f}" for v in ms)
+                  + f"); card {card}", flush=True)
     return results
 
 
@@ -302,7 +420,7 @@ def step_probe(card: str) -> list:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probe", choices=("k3", "k2", "step"))
+    ap.add_argument("probe", choices=("k3", "k3bf16", "k2", "step"))
     ap.add_argument("--json", help="also write the results to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -311,7 +429,8 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_grad_enabled(False)
-    results = {"k3": k3_probe, "k2": k2_probe, "step": step_probe}[args.probe](card)
+    results = {"k3": k3_probe, "k3bf16": k3_bf16_probe, "k2": k2_probe,
+               "step": step_probe}[args.probe](card)
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps({"card": card, "results": results}))

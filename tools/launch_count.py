@@ -11,6 +11,10 @@ f32 and bf16; deltamu and conditional too where it has ``Nocon``) it runs
 speech-like wavs, fast-6, weights from the same seeds as its phases 3 and
 7), then profiles two more batches and prints the device kernels by name
 with their launches a batch and the total (``chip_smoke.top_kernels``).
+Then it times one bf16 DiffUNet1 encoder at that batch (``encoder_fused``
+on its packed encoder: the five K3-bf16 stages with whatever glue that
+checkout runs around them): device ms (``chip_smoke.device_ms``), graph ms
+(``chip_smoke.graph_ms``) and launches.
 """
 
 from __future__ import annotations
@@ -65,6 +69,17 @@ def main(argv=None) -> None:
                 names[name] += n
             out["batches"][key] = {"launches": total, "kernels": dict(names)}
             print(f"{key}: {total} kernel launches a batch", flush=True)
+    from prior_diffuse_tpu_torch.ops.cuda import convblock as cb
+
+    g = torch.Generator(device=device).manual_seed(2)
+    x = torch.randn(cs.BATCH, cs.T_FRAMES, 161, 2, generator=g, device=device).bfloat16()
+    temb = nets[1].time_embedding(torch.rand(cs.BATCH, generator=g, device=device) * 40.0)
+    packed = cb.pack_encoder(nets[1].core.en, torch.bfloat16)
+    enc = lambda: cb.encoder_fused(x, packed, temb.bfloat16())  # noqa: E731
+    _, launches = cs.top_kernels(enc)
+    out["bf16_encoder"] = {"device_ms": cs.device_ms(enc), "graph_ms": cs.graph_ms(enc),
+                           "launches": launches}
+    print(f"bf16 encoder, {cs.BATCH} x {cs.T_FRAMES} frames: {out['bf16_encoder']}", flush=True)
     print(json.dumps(out), flush=True)
     if a.json:
         with open(a.json, "w") as f:
