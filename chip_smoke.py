@@ -102,7 +102,22 @@ Phases (each passes or ends the script with a non-zero exit):
    (a floor and a ceiling), the bf16 ``Enhancer`` (pirorgrad, plain and
    ``--sigma``: K1 = 1, K2 = 1, K3-bf16 = 30, K3 = 0) through the kernels
    against the plain versions, against f32, timed, and on the card against
-   the CPU at 2 x 0.5 s.
+   the CPU at 2 x 0.5 s;
+10. bf16 training (``train.compute_dtype: bfloat16``, f32 parameters and
+   Adam state): ``conf/diff.yml``'s trainer at 6 x 48000, ``--joint
+   --sigma``: one bf16 step through K1 against the same step through the
+   plain STFT (losses and gradients; the plain STFT perturbed at float32's
+   rounding printed beside it, and K1 with a window defect, the control,
+   rejected), against the f32 step on the same weights, batch and draws
+   (near, and not equal), and on the card against the CPU at 2 x 0.5 s; 10
+   timed steps of each dtype in turns (ms, utterances/s, peak memory),
+   each step's device ms and launches; ``evaluate()`` on the bf16-compute
+   path (K1 = 2, K2 = 2 a cv batch, K3 = 0); a checkpoint restored into a
+   fresh trainer; ``cli.main`` on a bf16 copy of the yml for one epoch and
+   ``--generate`` (K3 = 0); then ``ComplexTrainer`` (GCRN 8 x 48000,
+   ``aia_complex_trans_ri`` 4 x 48000) and ``MagTrainer`` (GRN 8 x 48000)
+   in bf16: the K1 step against the plain-STFT step, 5 timed steps with
+   peak memory, and ``enhance_batch`` (K1 = 1, K2 = 1).
 
 It prints a JSON line of per-kernel results before the last line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -208,6 +223,33 @@ BF16_PRIORS = ("GCRN", "aia_complex_trans_ri")
 BF16_PRIOR_ONLY_PATH_RMS = {"GCRN": BF16_PATH_RMS, "aia_complex_trans_ri": 2 * BF16_PATH_RMS}
 BF16_PRIOR_VS_F32_RMS = {"GCRN": (1e-3, 3e-2), "aia_complex_trans_ri": (1e-3, 6e-2)}
 BF16_PRIOR_CARD_VS_CPU_RMS = {"GCRN": 2e-2, "aia_complex_trans_ri": 3e-2}
+# Phase 10, bf16 training (train.compute_dtype: bfloat16).  One bf16 train
+# step through K1 against the same step through the plain STFT: bf16
+# rounding flips wherever the two STFTs round apart, and the train-mode
+# BatchNorms carry them, so the gradients move as far as any float32
+# rounding change of the input moves them.  The plain STFT times 1 + 1e-7
+# N(0, 1) (printed each run) moved the DDPM step's losses 1.6e-5 .. 5.2e-5
+# and its gradients 7.0e-3 .. 8.3e-3 relative L2, the priors' losses up to
+# 1.7e-5 and gradients up to 4.0e-2 (GRN); K1 itself read 6.9e-5 and
+# 7.2e-3 / 7.8e-3; K1 with the symmetric Hann window (the control) moved
+# the losses 9.1e-4 .. 1.3e-3 but the gradients only 8.5e-3 .. 1.1e-1 (tools/
+# bf16_train_probe.py card on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
+# §6).  So the losses carry the check, 4x above the floor and
+# 3x below the control, and the gradients are held above their floor.
+BF16_STEP_LOSS_RTOL = 3e-4
+BF16_STEP_GRAD_RTOL = 0.1
+BF16_STEP_CONTROL = "symmetric Hann window"  # the defect of K1 the check must reject
+# the bf16 step against the f32 step on the same weights, batch and draws
+# (measured on that card: losses 7.7e-5, gradients 1.0e-2): near, and not
+# equal
+BF16_VS_F32_STEP_GRAD = (1e-3, 0.1)
+BF16_VS_F32_STEP_LOSS = 1e-3
+# the bf16 step on the card against the same step on the CPU (the branch the
+# tests hold to JAX), 2 x 8000 samples, explicit q-sample draws (measured:
+# losses 2.7e-4, gradients 3.6e-2 / 4.2e-2): losses (relative), gradients
+# (relative L2)
+BF16_STEP_CARD_VS_CPU = (1e-3, 0.1)
+BF16_TRAIN_PRIORS = ("GCRN", "aia_complex_trans_ri", "GRN")
 
 
 def fail(msg: str) -> None:
@@ -295,8 +337,11 @@ def device_ms(fn, calls: int = 5):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+        # an annotated range (the optimizer's step) on the device timeline
+        # spans kernels counted on their own
         us = sum(e.device_time_total for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False))
         if us > 0:
             return us / calls / 1e3
     return None
@@ -890,7 +935,8 @@ def top_kernels(fn, n: int = 8, calls: int = 2) -> tuple:
             fn()
         torch.cuda.synchronize()
     rows = [(e.key[:60], e.device_time_total / calls / 1e3, e.count // calls)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     return sorted(rows, key=lambda r: -r[1])[:n], sum(r[2] for r in rows)
 
 
@@ -1141,7 +1187,8 @@ def timed_steps(tr, batches, card, iters: int = 10, label: str = "joint, sigma")
         float(tr._train_step(*batches[i % len(batches)], norms=False)[0])
         wall.append((time.perf_counter() - t0) * 1e3)
     rows = batches[0][0].shape[0]
-    print(f"train step [{label}] batch {rows} x {LENGTH}, f32: {ms:.3f} ms/step "
+    dtype = str(getattr(tr, "compute_dtype", torch.float32)).split(".")[-1]
+    print(f"train step [{label}] batch {rows} x {LENGTH}, {dtype}: {ms:.3f} ms/step "
           f"(CUDA events, mean of {iters}), {rows / (ms / 1e3):.2f} utterances/s, "
           f"peak memory {peak / 2**20:.1f} MiB; host clock {np.median(wall):.3f} ms/step "
           f"(median of 5, {min(wall):.3f}-{max(wall):.3f}); losses of the last step "
@@ -1507,9 +1554,9 @@ def trainer_of(name: str) -> str:
     return "MagTrainer" if name == "GRN" else "ComplexTrainer"
 
 
-def complex_trainer(device, name, net, root, corpus, tag=""):
-    """The trainer (:func:`trainer_of`) of the prior's yml on the corpus,
-    holding ``net``'s weights."""
+def complex_trainer(device, name, net, root, corpus, tag="", bf16: bool = False):
+    """The trainer (:func:`trainer_of`) of the prior's yml on the corpus
+    (with ``bf16``, training in bf16 compute), holding ``net``'s weights."""
     from prior_diffuse_tpu_torch.config import RunConfig
     from prior_diffuse_tpu_torch.training.complex_trainer import ComplexTrainer
     from prior_diffuse_tpu_torch.training.mag_trainer import MagTrainer
@@ -1517,7 +1564,8 @@ def complex_trainer(device, name, net, root, corpus, tag=""):
     cls = MagTrainer if trainer_of(name) == "MagTrainer" else ComplexTrainer
     run = RunConfig(seed=7, trainer=trainer_of(name), data_root=corpus,
                     assets=os.path.join(root, f"assets_{name}{tag}"))
-    tr = cls(run, prior_exp(name), device=device)
+    exp = bf16_exp(prior_exp(name)) if bf16 else prior_exp(name)
+    tr = cls(run, exp, device=device)
     tr.model.load_state_dict(net.state_dict())
     return tr
 
@@ -1862,6 +1910,311 @@ def bf16_prior_phase(device, card, priors, ddpm) -> dict:
     return paths
 
 
+
+# ---- phase 10: bf16 training -------------------------------------------------
+
+
+def bf16_exp(exp):
+    """``exp`` training in bf16 compute (``train.compute_dtype: bfloat16``)."""
+    return dataclasses.replace(exp, train=dataclasses.replace(exp.train,
+                                                              compute_dtype="bfloat16"))
+
+
+def step_distance(tr, got: dict, ref: dict) -> dict:
+    """Losses (largest relative difference) and each net's gradient
+    (relative L2) of two runs of one train step (:func:`one_step`)."""
+    import torch
+
+    rel = lambda a, b: float(torch.linalg.vector_norm(a.float() - b.float())
+                             / torch.clamp(torch.linalg.vector_norm(b.float()), min=1e-30))
+    out = {"loss": max(abs(a - b) / abs(b) for a, b in zip(got["loss"], ref["loss"]))}
+    out.update({n: rel(got["grad"][n].cpu(), ref["grad"][n].cpu()) for n in tr.nets})
+    return out
+
+
+def held(label: str, dist: dict, loss_rtol: float, grad_rtol: float) -> list:
+    """Print ``dist`` against the bounds; return what misses them."""
+    print(f"{label}: losses {dist['loss']:.3e} (bound {loss_rtol:g}), gradients " + ", ".join(
+        f"{n} {v:.3e}" for n, v in dist.items() if n != "loss") + f" (bound {grad_rtol:g})",
+        flush=True)
+    misses = [] if finite([dist["loss"]]) and dist["loss"] <= loss_rtol else ["losses"]
+    return misses + [f"{n} gradients" for n, v in dist.items()
+                     if n != "loss" and not v <= grad_rtol]
+
+
+@contextmanager
+def stft_times(noise_seed: int):
+    """The plain STFT times ``1 + 1e-7 N(0, 1)``: a float32 rounding change."""
+    import torch
+
+    from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
+
+    plain = kstft.stft_plain
+
+    def perturbed(wav):
+        s = plain(wav)
+        g = torch.Generator(device=s.device).manual_seed(noise_seed)
+        return s * (1 + 1e-7 * torch.randn(s.shape, generator=g, device=s.device))
+
+    with mock.patch.object(kstft, "stft", perturbed):
+        yield
+
+
+@contextmanager
+def k1_defect(kind):
+    """K1 launched on its table with a defect of its window: ``"symmetric
+    Hann window"`` (0.6 % of the spectrum), or the window scaled by
+    ``1 + kind`` (a float)."""
+    import torch
+
+    from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
+
+    operands = kstft._device_operands
+
+    def wrong(device):
+        tab, itab = operands(device)
+        tab = tab.clone()
+        if kind == "symmetric Hann window":
+            tab[:320] = torch.hann_window(320, periodic=False, device=tab.device)
+        else:
+            tab[:320] *= 1 + kind
+        return tab, itab
+
+    with mock.patch.object(kstft, "_device_operands", wrong):
+        yield
+
+
+def bf16_step_through_k1_and_plain(tr, batch, label: str) -> dict:
+    """From one state: the bf16 step through K1, through the plain STFT,
+    through the plain STFT perturbed at float32's rounding (twice, printed:
+    the floor), and through K1 with the control's defect, which the check
+    must reject.  Returns the K1 step (:func:`one_step`)."""
+    snap = copy.deepcopy(tr.ckpt_payload())
+
+    def run(ctx=None, plain=False):
+        tr.restore_payload(copy.deepcopy(snap))
+        if ctx is None:
+            return one_step(tr, batch, plain=plain)
+        with ctx:
+            return one_step(tr, batch)
+
+    reset_counts()
+    got = run()
+    expect_counts(f"one bf16 train step [{label}]", {"stft": 2})
+    ref = run(plain=True)
+    for seed in (1, 2):
+        held(f"bf16 step [{label}]: plain STFT x (1 + 1e-7 N) (seed {seed}) vs plain",
+             step_distance(tr, run(stft_times(seed)), ref), BF16_STEP_LOSS_RTOL,
+             BF16_STEP_GRAD_RTOL)
+    misses = held(f"bf16 step [{label}]: K1 vs plain STFT", step_distance(tr, got, ref),
+                  BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL)
+    if misses:
+        fail(f"bf16 step [{label}] K1 vs plain STFT: {', '.join(misses)} disagree")
+    control = held(f"bf16 step [{label}]: K1 with the control ({BF16_STEP_CONTROL}) vs plain",
+                   step_distance(tr, run(k1_defect(BF16_STEP_CONTROL)), ref),
+                   BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL)
+    if not control:
+        fail(f"the bf16 train-step check [{label}] passed K1 with the control defect")
+    tr.restore_payload(copy.deepcopy(snap))
+    return got
+
+
+def bf16_step_card_vs_cpu(device, exp, run) -> None:
+    """One bf16 step of the DDPM trainer on the card against the same step
+    on the CPU (the branch the tests hold to JAX) at 2 x CARD_VS_CPU_LENGTH
+    samples: one batch of the corpus, the same weights, explicit q-sample
+    draws."""
+    import torch
+
+    from prior_diffuse_tpu_torch.diffusion.qsample import Draws
+    from prior_diffuse_tpu_torch.training.ddpm_trainer import ComplexDDPMTrainer
+
+    small = dataclasses.replace(exp, train=dataclasses.replace(
+        exp.train, batch_size=2, chunk_length=CARD_VS_CPU_LENGTH))
+    trainers = [ComplexDDPMTrainer(dataclasses.replace(run, assets=f"{run.assets}_{d}"),
+                                   small, device=d) for d in (device, "cpu")]
+    for n, net in trainers[1].nets.items():
+        trainers[0].nets[n].load_state_dict(net.state_dict())
+    b = next(iter(trainers[1].tr_loader))
+    g = torch.Generator().manual_seed(12)
+    draws = Draws(torch.randint(0, trainers[1].num_steps, (2,), generator=g),
+                  torch.randn((2, CARD_VS_CPU_LENGTH // 160 + 1, 161, 2), generator=g))
+    runs = []
+    for tr in trainers:
+        out = tr._train_step(*tr.put_batch(b.noisy, b.clean, b.frame_nums),
+                             draws=Draws(*(x.to(tr.device) for x in draws[:2])))
+        runs.append({"loss": [float(v) for v in train_losses(out)],
+                     "grad": {n: torch.cat([(p.grad if p.grad is not None else
+                                             torch.zeros_like(p)).flatten().cpu()
+                                            for p in m.parameters()])
+                              for n, m in tr.nets.items()}})
+    misses = held(f"bf16 step card vs CPU [2 x {CARD_VS_CPU_LENGTH}]",
+                  step_distance(trainers[0], *runs), *BF16_STEP_CARD_VS_CPU)
+    if misses:
+        fail(f"bf16 step card vs CPU: {', '.join(misses)} disagree")
+
+
+def step_profile(tr, batch, label: str, card) -> None:
+    """Device ms and kernel launches of one train step (no group norms)."""
+    step = lambda: tr._train_step(*batch, norms=False)
+    dev = device_ms(step, calls=3)
+    top, launches = top_kernels(step)
+    print(f"train step [{label}]: device {fmt(dev)} ms, {launches} kernel launches a step; "
+          f"top kernels by device ms per step: " + "; ".join(
+              f"{k} {kms:.3f} ({n})" for k, kms, n in top) + f"; card {card}", flush=True)
+
+
+def bf16_ddpm_phase(device, card, root: str, corpus: str) -> dict:
+    """Phase 10a: ``conf/diff.yml`` trained in bf16 compute, ``--joint
+    --sigma``, batch 6 x 48000: the K1 step against the plain-STFT step
+    (the control rejected), against the f32 step on the same weights,
+    batch and draws, and on the card against the CPU; 10 timed steps of
+    each dtype in turns with their device ms and launches; ``evaluate()``
+    (the bf16-compute path: K1 and K2, no K3); a checkpoint restored into a
+    fresh trainer; ``cli.main`` for one epoch and ``--generate``."""
+    import torch
+
+    from prior_diffuse_tpu_torch import cli
+    from prior_diffuse_tpu_torch.config import RunConfig, load_experiment
+    from prior_diffuse_tpu_torch.data.wavio import read_wav
+    from prior_diffuse_tpu_torch.serving.enhancer import ComputeEnhancer
+    from prior_diffuse_tpu_torch.training.ddpm_trainer import ComplexDDPMTrainer
+
+    exp32 = load_experiment(os.path.join(ROOT, "conf", "diff.yml"))
+    exp = bf16_exp(exp32)
+    run = RunConfig(seed=7, joint=True, sigma=True, data_root=corpus,
+                    assets=os.path.join(root, "assets_bf16"))
+    tr = ComplexDDPMTrainer(run, exp, device=device)
+    if not (tr.compute_dtype == torch.bfloat16 and tr.fused_train
+            and isinstance(tr.enhancer, ComputeEnhancer)):
+        fail("the bf16 trainer does not train in bf16 through the dual forward")
+    batches = [tr.put_batch(b.noisy, b.clean, b.frame_nums) for b in tr.tr_loader]
+    got = bf16_step_through_k1_and_plain(tr, batches[0], "DDPM, conf/diff.yml")
+    tr32 = ComplexDDPMTrainer(dataclasses.replace(run, assets=run.assets + "_f32"), exp32,
+                              device=device)
+    ref32 = one_step(tr32, batches[0])  # the same initial weights and draws
+    dist = step_distance(tr, got, ref32)
+    lo, hi = BF16_VS_F32_STEP_GRAD
+    print(f"bf16 step vs f32 step (same weights, batch, draws): losses {dist['loss']:.3e} "
+          f"(bound {BF16_VS_F32_STEP_LOSS:g}), gradients " + ", ".join(
+              f"{n} {dist[n]:.3e}" for n in tr.nets) + f" (between {lo:g} and {hi:g})",
+          flush=True)
+    if not (dist["loss"] <= BF16_VS_F32_STEP_LOSS and all(lo <= dist[n] <= hi for n in tr.nets)):
+        fail("the bf16 step is not near the f32 step, or equal to it")
+    bf16_step_card_vs_cpu(device, exp, run)
+
+    paths = {}
+    for t, label in ((tr32, "f32"), (tr, "bf16"), (tr, "bf16"), (tr32, "f32")):
+        counts = timed_steps(t, batches, card, label=f"{label}, joint, sigma")
+    paths["train_step_bf16"] = counts
+    for n, opt in tr.opts.items():
+        if not opt.state or not all(s["exp_avg"].dtype == s["exp_avg_sq"].dtype == torch.float32
+                                    for s in opt.state.values()):
+            fail(f"{n}: Adam state not float32")
+    if not all(p.dtype == torch.float32 for m in tr.nets.values() for p in m.parameters()):
+        fail("bf16 training changed the parameters' dtype")
+    for t, label in ((tr32, "f32"), (tr, "bf16")):
+        step_profile(t, batches[0], f"{label}, joint, sigma, batch {TRAIN_BATCH}", card)
+    del tr32
+
+    n_cv = len(tr.cv_loader)
+    reset_counts()
+    t0 = time.perf_counter()
+    cv_loss = tr.evaluate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paths["evaluate_cv_batch_bf16"] = expect_counts(
+        f"bf16 evaluate() over {n_cv} cv batch(es)", {"stft": 2 * n_cv, "istft": 2 * n_cv})
+    if not finite([cv_loss]):
+        fail("non-finite bf16 evaluation")
+    b = next(iter(tr.cv_loader))
+    noisy, clean, frames = tr.put_batch(b.noisy, b.clean, b.frame_nums)
+    ms = cuda_ms(lambda: tr._eval_step(noisy, clean, frames), iters=3, warmup=1)
+    print(f"bf16 evaluate(): cv loss {cv_loss:.5f}; {wall / n_cv * 1e3:.1f} ms wall per cv "
+          f"batch incl. host scoring, eval step {ms:.3f} ms (CUDA events); card {card}",
+          flush=True)
+    resume_check(tr, run, exp, batches[1])
+
+    with open(os.path.join(ROOT, "conf", "diff.yml")) as f:
+        text = f.read()
+    if "n_epochs: 50" not in text or "  lam: 1\n" not in text:
+        fail("conf/diff.yml has no 'n_epochs: 50' or 'lam: 1' line")
+    conf = os.path.join(root, "diff_bf16.yml")
+    with open(conf, "w") as f:
+        f.write(text.replace("n_epochs: 50", "n_epochs: 1").replace(
+            "  lam: 1\n", "  lam: 1\n  compute_dtype: bfloat16\n"))
+    assets = os.path.join(root, "cli_bf16")
+    args = ["--config", conf, "--joint", "--sigma", "--data-root", corpus, "--assets",
+            assets, "--seed", "11"]
+    n_steps, n_cv = CORPUS[0] // TRAIN_BATCH, CORPUS[1] // TRAIN_BATCH
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paths["cli_train_bf16"] = expect_counts("cli.main, bf16 yml (1 epoch)", {
+        "stft": 2 * (n_steps + n_cv), "istft": 2 * n_cv})
+    steps = [r for r in metric_records(os.path.join(assets, "log", "diff")) if "loss_sum" in r]
+    if len(steps) != n_steps or not finite(r["loss_sum"] for r in steps):
+        fail(f"bf16 cli log: {len(steps)} train records")
+    print(f"cli.main (bf16 yml): {n_steps} steps and an evaluation in {wall:.1f} s wall; "
+          f"step {np.median([r['step_time_ms'] for r in steps]):.3f} ms median on the host "
+          f"clock; card {card}", flush=True)
+    reset_counts()
+    cli.main(args + ["--generate"])
+    torch.cuda.synchronize()
+    n_gen = -(-CORPUS[1] // TRAIN_BATCH)
+    paths["cli_generate_bf16"] = expect_counts("cli.main --generate, bf16 yml",
+                                               {"stft": n_gen, "istft": n_gen})
+    ins = sorted(glob.glob(os.path.join(corpus, "noisy_testset_wav", "*.wav")))
+    outs = sorted(glob.glob(os.path.join(assets, "wav", "diff", "*.wav")))
+    if [os.path.basename(p) for p in outs] != [os.path.basename(p) for p in ins] or not all(
+            np.isfinite(read_wav(o)[0]).all() for o in outs):
+        fail(f"bf16 --generate wrote {len(outs)} wavs for {len(ins)} inputs, or non-finite")
+    return paths
+
+
+def bf16_prior_train_phase(device, card, root: str, corpus: str, priors: dict) -> dict:
+    """Phase 10b: ``ComplexTrainer`` (GCRN at 8 x 48000,
+    ``aia_complex_trans_ri`` at 4 x 48000) and ``MagTrainer`` (GRN at 8 x
+    48000) in bf16 compute: the K1 step against the plain-STFT step, 5 timed
+    steps with peak memory, and ``enhance_batch`` on the batch of phase 3
+    (K1 = 1, K2 = 1)."""
+    import torch
+
+    paths = {}
+    wav = speechlike(BATCH, LENGTH, 3)
+    for name in BF16_TRAIN_PRIORS:
+        tr = complex_trainer(device, name, priors[name], root, corpus, tag="_bf16", bf16=True)
+        trainer, kind = type(tr).__name__, "mag" if name == "GRN" else "complex"
+        if tr.compute_dtype != torch.bfloat16 or tr.model_train is tr.model:
+            fail(f"{trainer} [{name}] does not train in bf16")
+        batches = [tr.put_batch(b.noisy, b.clean, b.frame_nums) for b in tr.tr_loader]
+        bf16_step_through_k1_and_plain(tr, batches[0], f"{trainer}, {name}")
+        paths[f"train_step_bf16_{kind}_{name}"] = timed_steps(
+            tr, batches, card, iters=5, label=f"{trainer}, {name}, bf16")
+        reset_counts()
+        out = tr.enhance_batch(wav)
+        torch.cuda.synchronize()
+        paths[f"serve_batch_bf16_{kind}_{name}"] = expect_counts(
+            f"{trainer}.enhance_batch [{name}, bf16-trained]", {"stft": 1, "istft": 1})
+        if out.shape != (BATCH, LENGTH) or out.dtype != torch.float32 or not bool(
+                torch.isfinite(out).all()):
+            fail(f"{trainer}.enhance_batch [{name}, bf16]: {tuple(out.shape)} {out.dtype}")
+        wav_dev = torch.from_numpy(wav).to(device)
+        ms = cuda_ms(lambda: tr.enhance_batch(wav_dev), iters=5, warmup=1)
+        print(f"{trainer}.enhance_batch [{name}, bf16-trained] batch {BATCH} x "
+              f"{LENGTH // SR} s: {ms:.3f} ms/batch; card {card}", flush=True)
+    return paths
+
+
+def bf16_train_phase(device, card, root: str, corpus: str, priors: dict) -> dict:
+    """Phase 10; returns the launch counts of its paths."""
+    paths = bf16_ddpm_phase(device, card, root, corpus)
+    paths.update(bf16_prior_train_phase(device, card, root, corpus, priors))
+    return paths
+
+
 def main() -> None:
     import torch
 
@@ -1932,7 +2285,12 @@ def main() -> None:
         paths.update(grn_phase(device, card, root, corpus))
         diffwave_phase(device, card)
         paths.update(bf16_prior_phase(device, card, priors, nets[1]))
-        mark("9 done")
+        mark(10)
+        from prior_diffuse_tpu_torch.models.grn import GRN
+
+        paths.update(bf16_train_phase(device, card, root, corpus,
+                                      {**priors, "GRN": seeded_nets(60, device, (GRN,))[0]}))
+        mark("10 done")
 
     # (route, source, replaces, the path whose run "launches" counts)
     meta = {

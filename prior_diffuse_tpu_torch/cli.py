@@ -11,8 +11,10 @@ The counterpart of ``prior_diffuse_tpu/cli.py`` (reference ``main.py:20-41``):
 
 with assets under ``<assets>/{log,checkpoint,wav}/<doc>`` and data under
 ``--data-root`` (``{noisy,clean}_{trainset,testset}_wav``).  ``--device``
-names the torch device (``cuda`` by default; there is no fallback).  The
-flags of the JAX CLI that the port does not run yet raise
+names the torch device (``cuda`` by default; there is no fallback).  A
+yml whose ``train:`` section sets ``compute_dtype: bfloat16`` trains,
+evaluates and generates in bf16 compute with any of the three trainers.
+The flags of the JAX CLI that the port does not run yet raise
 ``NotImplementedError``: ``--draw``, ``--profile-steps`` and ``--wandb``.
 """
 

@@ -48,7 +48,7 @@ class TrainConfig:
     pesq_loss: bool = False
     lam: float = 1.0  # joint loss weight: lam * L_ddpm + L_dis
     sample_rate: int = 16000
-    compute_dtype: str = "float32"  # the port trains in float32 only
+    compute_dtype: str = "float32"  # "bfloat16" / "bf16": bf16 compute (models/precision.py)
 
     @property
     def stft(self) -> StftConfig:

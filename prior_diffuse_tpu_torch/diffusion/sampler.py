@@ -5,7 +5,8 @@ The counterpart of ``prior_diffuse_tpu/diffusion/sampler.py::reverse_sample``
 Random draws are explicit tensors (``x_T``, ``noise``), so a caller or a
 test can hand the same numbers to both packages.  The chain runs in
 ``x_init``'s dtype (float32 or bfloat16), as the JAX sampler runs in its
-``dtype``.
+``dtype``, or in float32 around a bf16 ``x_init`` (the JAX evaluation of a
+bf16-trained model).
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ def reverse_sample(
     zero_init: bool = False,
     predict: str = "eps",
     mode: str = "pirorgrad",
+    dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Run the reverse chain from ``x_T``; in ``mode``:
 
@@ -90,10 +92,14 @@ def reverse_sample(
       are derived in float64 and rounded once (in bfloat16, ``1 - ab``
       taken after the cast is 0 for ``ab`` > ~0.996).
 
-    The chain's dtype is ``x_init``'s: ``x``, the schedule constants and
-    the ``t`` fed to ``model_fn`` are in it (in bfloat16 the fractional
-    fast-schedule ``T`` rounds, to a spacing of 0.25 between 32 and 64), and
-    so are ``x_T``, ``noise`` and ``sig_mask`` and its square root.
+    The chain's dtype is ``dtype``, by default ``x_init``'s: ``x``, the
+    schedule constants and the ``t`` fed to ``model_fn`` are in it (in
+    bfloat16 the fractional fast-schedule ``T`` rounds, to a spacing of
+    0.25 between 32 and 64), and so are ``x_T`` and ``noise``.  ``sig_mask``
+    and its square root are in the chain's dtype or in ``x_init``'s: a
+    float32 chain around a bf16 ``x_init`` (JAX's ``_eval_step`` of a
+    bf16-trained model, ``ddpm_trainer.py:368-384``) takes the mask of the
+    bf16 ``x_init`` in bf16 and promotes where it meets ``x``.
     """
     if predict not in ("eps", "x0"):
         raise ValueError(f"unknown predict parameterization {predict!r}")
@@ -103,19 +109,20 @@ def reverse_sample(
     noiseless = is_noiseless(sched)
     if not noiseless and noise is None:
         raise ValueError("this schedule adds step noise: pass `noise`")
-    dt = x_init.dtype
+    dt = dtype or x_init.dtype
     c1, c2, t_steps = rounded(sched.c1, dt), rounded(sched.c2, dt), rounded(sched.T, dt)
     new_sigma = rounded(sched.new_sigma, dt)
     ab = np.asarray(sched.alpha_cum, np.float64)
     sqrt_ab, rsqrt_1mab = rounded(np.sqrt(ab), dt), rounded(1.0 / np.sqrt(1.0 - ab), dt)
-    for name, arr in (("x_T", None if zero_init else x_T), ("sig_mask", sig_mask),
-                      ("noise", noise)):
+    for name, arr in (("x_T", None if zero_init else x_T), ("noise", noise)):
         if arr is not None and arr.dtype != dt:
             raise ValueError(f"{name} is {arr.dtype}, the chain runs in {dt}")
+    if sig_mask is not None and sig_mask.dtype not in (dt, x_init.dtype):
+        raise ValueError(f"sig_mask is {sig_mask.dtype}, the chain runs in {dt}")
     scale = None if sig_mask is None else torch.sqrt(sig_mask)
     batch = x_init.shape[0]
 
-    starts = [torch.zeros_like(x_init)] if zero_init else list(x_T)
+    starts = [torch.zeros_like(x_init, dtype=dt)] if zero_init else list(x_T)
     chains = []
     for i, x in enumerate(starts):
         if scale is not None and not zero_init:

@@ -31,8 +31,10 @@ def spec_batch_to_wavs(
 ) -> List[np.ndarray]:
     """De-compress + batched ISTFT to ``(T - 1) * 160`` samples (the JAX
     ``istft`` default length) + per-utterance trim to ``(frames-1)*160``
-    samples (the reference's trim, utils/metrics.py:562-563)."""
-    spec = decompress_spec(spec, feat_type).contiguous()
+    samples (the reference's trim, utils/metrics.py:562-563).  A bf16
+    estimate (a bf16-compute prior's) is cast to float32 first: K2 is
+    float32 only."""
+    spec = decompress_spec(spec.float(), feat_type).contiguous()
     wavs = kstft.istft(spec, (spec.shape[1] - 1) * HOP).cpu().numpy()
     return [wavs[i, : (int(fn) - 1) * HOP] for i, fn in enumerate(frame_nums)]
 

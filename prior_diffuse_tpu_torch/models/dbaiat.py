@@ -76,6 +76,11 @@ class TransformerEncoderLayer(nn.Module):
     serving copy holds their weights rounded to bf16 in float32)."""
 
     F32_PARTS = ("gru", "linear2")
+    # a bf16-compute forward (bf16 training, ``models/precision.py``) keeps
+    # only the GRU float32: JAX's ``linear2`` is ``nn.Dense(dtype=...)``,
+    # so it computes in bf16 there, and the LayerNorms (no dtype field)
+    # return float32
+    COMPUTE_F32_PARTS = ("gru",)
 
     def __init__(self, d_model: int, nhead: int = 4):
         super().__init__()
@@ -160,7 +165,7 @@ class AIATransformer(nn.Module):
         outputs = []
         for i in range(self.num_layers):
             row, col = getattr(self, f"layer{i}")(h)
-            h = h + (self.k1 * row + self.k2 * col)
+            h = h + (self.k1 * row + self.k2 * col).to(h.dtype)
             outputs.append(self.output(h))
         return outputs[-1], outputs
 
@@ -189,10 +194,12 @@ class AIATransformerMerge(nn.Module):
             layer = getattr(self, f"layer{i}")
             h_mag = input_mag if i == 0 else outs_mag[-1] + outs_ri[-1]
             row, col = layer(h_mag)
-            outs_mag.append(self.output(input_mag + (self.k1 * row + self.k2 * col)))
+            outs_mag.append(self.output(
+                input_mag + (self.k1 * row + self.k2 * col).to(input_mag.dtype)))
             h_ri = input_ri if i == 0 else outs_ri[-1] + outs_mag[-2]
             row, col = layer(h_ri)
-            outs_ri.append(self.output(input_ri + (self.k1 * row + self.k2 * col)))
+            outs_ri.append(self.output(
+                input_ri + (self.k1 * row + self.k2 * col).to(input_ri.dtype)))
         return outs_mag[-1], outs_mag, outs_ri[-1], outs_ri
 
 
@@ -202,6 +209,9 @@ class AHAM(nn.Module):
     softmax over the layers weighs them; the last layer's output is added.
     ``k3`` is the reference's parameter that its forward never reads,
     kept for the parameter count."""
+
+    # JAX's AHAM conv has no dtype field: float32 in a bf16-compute forward
+    COMPUTE_F32_PARTS = ("conv1",)
 
     def __init__(self, input_channel: int = WIDTH):
         super().__init__()
@@ -373,7 +383,7 @@ class DualAiaComplexTrans(nn.Module):
         h_ri = self.aham(outs_ri)
         _, outs_mag = self.dual_trans_mag(self.en_mag(mag[:, None]))
         masked_mag = self.de_mag_mask(self.aham_mag(outs_mag))[:, 0] * mag
-        com = torch.stack([self.de1(h_ri)[:, 0], self.de2(h_ri)[:, 0]], dim=-1)
+        com = torch.stack([self.de1(h_ri)[:, 0], self.de2(h_ri)[:, 0]], dim=-1).to(mag.dtype)
         pre_mag, pre_phase = _mag_phase(com)
         out_mag = (masked_mag + pre_mag) / 2.0
         return torch.stack([out_mag * torch.cos(pre_phase), out_mag * torch.sin(pre_phase)],

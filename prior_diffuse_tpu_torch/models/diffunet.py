@@ -6,8 +6,12 @@ The counterparts of ``prior_diffuse_tpu/models/diffunet.py`` (``DiffUNet``,
 ``core.en.conv1.l.weight`` (``convert.py``).  Public forwards take and
 return channels-last ``[B, T, 161, 2]``; inside, tensors are NCHW.
 
-These forwards run conv by conv and train.  The serving forward, with
-the encoder's stages on K3, is ``models/fused_forward.py``.
+These forwards run conv by conv and train; their sigmoid is
+``layers.sigmoid`` (XLA's rounding below float32).  The serving forward,
+with the encoder's stages on K3, is ``models/fused_forward.py``; the
+bf16-compute forward of bf16 training is these modules through
+``models/precision.py::compute_view``, whose ``COMPUTE_F32_PARTS`` (the
+time embedding) stay float32 as in JAX.
 """
 
 from __future__ import annotations
@@ -37,8 +41,8 @@ class BiConvGLU(nn.Module):
     def forward(self, x):
         x = self.conv1(x)
         left, right = self.l(x), self.r(x)
-        lmask = torch.sigmoid(self.l_conv(left))
-        rmask = torch.sigmoid(self.r_conv(right))
+        lmask = tl.sigmoid(self.l_conv(left))
+        rmask = tl.sigmoid(self.r_conv(right))
         return self.conv2(left * rmask + right * lmask)
 
 
@@ -60,8 +64,8 @@ class BiConvTransGLU(nn.Module):
             x = x + self.tp(temb)[:, :, None, None]
         x = self.conv1(x)
         left, right = self.l(x), self.r(x)
-        lmask = torch.sigmoid(self.l_conv(left))
-        rmask = torch.sigmoid(self.r_conv(right))
+        lmask = tl.sigmoid(self.l_conv(left))
+        rmask = tl.sigmoid(self.r_conv(right))
         return self.conv2(left * rmask + right * lmask)
 
 
@@ -86,7 +90,7 @@ class Residual(nn.Module):
         skip = x
         x = self.conv1(x)
         main = self.main_conv(self.main_bn(self.main_prelu(x)))
-        mask = torch.sigmoid(self.mask_conv(self.mask_bn(self.mask_prelu(x))))
+        mask = tl.sigmoid(self.mask_conv(self.mask_bn(self.mask_prelu(x))))
         x = self.out_conv(self.out_bn(self.out_prelu(main * mask)))
         return x + skip
 
@@ -209,6 +213,9 @@ class DiffUNet1(nn.Module):
     ``x_t [B, T, 161, 2]``, ``x_init [B, T, 161, cond_channels]``
     (2, or 4 for the ``cond_noisy`` conditioner), ``t [B]``."""
 
+    # the time embedding has no dtype field in JAX: float32 in bf16 compute
+    COMPUTE_F32_PARTS = ("time_embedding",)
+
     def __init__(self, num_steps: int = 50, cond_channels: int = 2):
         super().__init__()
         self.preprocess = nn.Conv2d(2 + cond_channels, 2, 1)
@@ -225,6 +232,8 @@ class Nocon(nn.Module):
     """Unconditional denoiser eps_theta(x_t, t) of the deltamu mode
     (JAX ``models/diffunet.py:264-277``): ``DiffUNet1`` without the
     preprocess, ``x_t [B, T, 161, 2]``, ``t [B]``."""
+
+    COMPUTE_F32_PARTS = ("time_embedding",)
 
     def __init__(self, num_steps: int = 50):
         super().__init__()

@@ -33,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from prior_diffuse_tpu_torch.models import layers as tl
 from prior_diffuse_tpu_torch.models.diffunet import UNetCore
 from prior_diffuse_tpu_torch.ops.cuda.convblock import encoder_fused, pack_encoder
 
@@ -61,19 +62,18 @@ def _mm(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.add(y, b, out=torch.empty(y.shape, dtype=a.dtype, device=a.device))
 
 
-@torch.no_grad()
 def _dual_stage(dr, di, bn, prelu, last: bool) -> dict:
-    """One decoder stage's ``BiConvTransGLU`` pair (``dr``, ``di``), with
-    its ``BatchNorm2d`` and ``PReLU`` pairs unless ``last``, as float32
-    dual-branch operands (``_dual_dec_stage``)."""
+    """One decoder stage's ``BiConvTransGLU`` pair (``dr``, ``di``) as
+    float32 dual-branch operands (``_dual_dec_stage``), with its
+    ``BatchNorm2d`` and ``PReLU`` pairs folded in unless ``last`` or unless
+    ``bn`` is None (training: BN runs on batch statistics and cannot fold;
+    ``fold_bn=False``).  Differentiable: the blocks are
+    ``torch.block_diag`` and concatenations of the branch weights."""
     w1r, w1i = _wt(dr.conv1), _wt(di.conv1)  # [128, 32]: branch x, then skip
-    cin = w1r.shape[0]
-    half = cin // 2
-    w1 = w1r.new_zeros((cin + half, 2 * G))  # rows: z_real, z_imag, skip
-    w1[:half, :G] = w1r[:half]
-    w1[half:cin, G:] = w1i[:half]
-    w1[cin:, :G] = w1r[half:]
-    w1[cin:, G:] = w1i[half:]
+    half = w1r.shape[0] // 2
+    # rows: z_real, z_imag, then the skip shared by both branches
+    w1 = torch.cat([torch.block_diag(w1r[:half], w1i[:half]),
+                    torch.cat([w1r[half:], w1i[half:]], dim=1)])
     st = {"w1": w1}
     b1 = torch.cat([dr.conv1.bias, di.conv1.bias])
     if dr.tp is not None:  # fold the per-branch time projection through conv1
@@ -84,17 +84,12 @@ def _dual_stage(dr, di, bn, prelu, last: bool) -> dict:
     st["wp"] = torch.cat([torch.cat([dr.l.weight, dr.r.weight], dim=1),
                           torch.cat([di.l.weight, di.r.weight], dim=1)])
     st["bp"] = torch.cat([dr.l.bias, dr.r.bias, di.l.bias, di.r.bias])
-    wg = w1.new_zeros((4 * G, 4 * G))
-    for i, conv in enumerate((dr.l_conv, dr.r_conv, di.l_conv, di.r_conv)):
-        wg[i * G:(i + 1) * G, i * G:(i + 1) * G] = _wt(conv)
-    st["wg"] = wg
+    st["wg"] = torch.block_diag(*(_wt(c) for c in (dr.l_conv, dr.r_conv, di.l_conv, di.r_conv)))
     st["bg"] = torch.cat([dr.l_conv.bias, dr.r_conv.bias, di.l_conv.bias, di.r_conv.bias])
     cout = dr.conv2.weight.shape[1]
-    w2 = w1.new_zeros((2 * G, 2 * cout))
-    w2[:G, :cout] = _wt(dr.conv2)
-    w2[G:, cout:] = _wt(di.conv2)
+    w2 = torch.block_diag(_wt(dr.conv2), _wt(di.conv2))
     b2 = torch.cat([dr.conv2.bias, di.conv2.bias])
-    if not last:  # fold inference BN (it commutes with the time chomp)
+    if not last and bn is not None:  # fold inference BN (it commutes with the time chomp)
         cat = lambda name: torch.cat([getattr(bn[0], name), getattr(bn[1], name)])
         scale = cat("weight") / torch.sqrt(cat("running_var") + bn[0].eps)
         w2 = w2 * scale[None, :]
@@ -153,6 +148,90 @@ def dual_decoder_forward(stages, x: torch.Tensor, skips, temb: Optional[torch.Te
             out = torch.where(out >= 0, out, st["alpha"] * out)
         z = out
     return z
+
+
+def _mm_train(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype
+              ) -> torch.Tensor:
+    """JAX's ``_mm`` under autograd: ``a @ w`` over ``dtype`` operands
+    summed in float32 (the product of the upcast operands: the same sums),
+    the f32 bias added, one rounding to ``a``'s dtype.  (``_mm``'s
+    ``out_dtype`` product and ``out=`` add do not differentiate.)"""
+    return (torch.matmul(a.to(dtype).float(), w.to(dtype).float()) + b).to(a.dtype)
+
+
+def dual_decoder_train_forward(core, x: torch.Tensor, skips, temb: Optional[torch.Tensor],
+                               dtype: torch.dtype) -> torch.Tensor:
+    """Train-mode dual decoder (JAX ``dual_decoder_train_forward``,
+    ``fused_forward.py:232-282``): the block-diagonal chain of
+    :func:`dual_decoder_forward` packed *inside* the forward from the
+    canonical ``de_real`` / ``de_imag`` modules of ``core`` (BN unfolded),
+    so gradients reach their parameters; each stage's BatchNorm is one
+    128-channel train-mode BatchNorm over ``[real | imag]`` (per-channel
+    statistics: exactly the two branch BatchNorms), whose statistics move
+    the two branches' running statistics, and the PReLU slopes are
+    broadcast per branch.  Products in ``dtype`` with f32 sums and an f32
+    bias, the paired transposed conv rounded before its bias, XLA's sigmoid,
+    BatchNorm in f32.  ``x [B, T, 4, 64]`` and ``skips`` channels-last."""
+    z = torch.cat([x, x], dim=-1)
+    for idx, skip in zip((5, 4, 3, 2, 1), reversed(skips)):
+        dr, di = getattr(core.de_real, f"de{idx}"), getattr(core.de_imag, f"de{idx}")
+        st = _dual_stage(dr, di, None, None, idx == 1)
+        b1 = st["b1"]
+        if temb is not None and "tp2b" in st:
+            b1 = (b1 + torch.matmul(temb.to(dtype).float(),
+                                    st["tp2b"].to(dtype).float()))[:, None, None, :]
+        h = _mm_train(torch.cat([z, skip.to(z.dtype)], dim=-1), st["w1"], b1, dtype)
+        y = F.conv_transpose2d(h.permute(0, 3, 1, 2).to(dtype), st["wp"].to(dtype), None,
+                               stride=(1, 2), groups=2)
+        y = (y + st["bp"].to(dtype)[:, None, None]).permute(0, 2, 3, 1).to(z.dtype)
+        gate = tl.sigmoid(_mm_train(y, st["wg"], st["bg"], dtype))
+        comb = torch.cat([y[..., :G] * gate[..., G:2 * G] + y[..., G:2 * G] * gate[..., :G],
+                          y[..., 2 * G:3 * G] * gate[..., 3 * G:]
+                          + y[..., 3 * G:] * gate[..., 2 * G:3 * G]], dim=-1)
+        out = _mm_train(comb, st["w2"], st["b2"], dtype)[:, :-1]  # time chomp
+        if idx != 1:
+            bns = (getattr(core.de_real, f"bn{idx}"), getattr(core.de_imag, f"bn{idx}"))
+            out, mean, var = tl.batch_norm_train(
+                out, torch.cat([bn.weight for bn in bns]), torch.cat([bn.bias for bn in bns]),
+                bns[0].eps, channel_dim=-1)
+            c = out.shape[-1] // 2
+            bns[0].update_stats(mean[:c], var[:c])
+            bns[1].update_stats(mean[c:], var[c:])
+            pr, pi = getattr(core.de_real, f"prelu{idx}"), getattr(core.de_imag, f"prelu{idx}")
+            alpha = torch.cat([pr.weight.expand(c), pi.weight.expand(c)]).to(out.dtype)
+            out = torch.where(out >= 0, out, alpha * out)
+        z = out
+    return z
+
+
+def dual_train_forward(view, x: torch.Tensor, x_init: Optional[torch.Tensor] = None,
+                       t: Optional[torch.Tensor] = None,
+                       dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The DiffUNet family's bf16 train forward (JAX ``dual_train_forward``,
+    ``fused_forward.py:285-337``, the JAX DDPM trainer's default in bf16):
+    ``DiffUNet1(x, x_init, t)``, ``Nocon(x, t)`` (``x_init`` None) or
+    ``DiffUNet(x)`` (both None) in train mode, with the two decoders as
+    :func:`dual_decoder_train_forward`.  ``view`` is the net's
+    ``models/precision.py::compute_view`` in ``dtype``, in train mode: the
+    preprocess, the encoder and the TCMs run as its modules (train-mode
+    BatchNorm moving the net's statistics), the time embedding in float32
+    cast to ``dtype``.  ``x``, ``x_init [B, T, 161, C]`` channels-last;
+    returns ``[B, T, 161, 2]`` in ``dtype``."""
+    if not view.training:
+        raise ValueError("the dual train forward runs in train mode")
+    if (x_init is None) == hasattr(view, "preprocess"):
+        raise ValueError("DiffUNet1 takes a conditioner x_init; Nocon and DiffUNet take "
+                         "none (x_init=None)")
+    if x_init is not None:
+        x = view.preprocess(torch.cat([x, x_init.to(x.dtype)], dim=-1).permute(0, 3, 1, 2))
+    else:
+        x = x.permute(0, 3, 1, 2)
+    temb = None if t is None else view.time_embedding(t).to(dtype)
+    core = view.core
+    xe, skips = core.en(x, temb)
+    xb = UNetCore.bottleneck(xe, (core.tcm1, core.tcm2, core.tcm3))
+    return dual_decoder_train_forward(core, xb.permute(0, 2, 3, 1),
+                                      [s.permute(0, 2, 3, 1) for s in skips], temb, dtype)
 
 
 def _cast_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:

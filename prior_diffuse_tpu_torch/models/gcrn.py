@@ -111,6 +111,9 @@ class GCRN(nn.Module):
     cast back to the bottleneck's dtype, as JAX's forward does."""
 
     F32_PARTS = ("glstm",)
+    # and in a bf16-compute forward (``models/precision.py``) on its
+    # unrounded float32 weights: JAX's GLSTM has no dtype field
+    COMPUTE_F32_PARTS = ("glstm",)
 
     def __init__(self):
         super().__init__()

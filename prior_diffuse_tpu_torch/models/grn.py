@@ -44,7 +44,7 @@ class GLU(nn.Module):
 
     def forward(self, x):
         a = F.elu(self.in_bn(self.in_conv(x)))
-        h = self.left_bn(self.left_conv(a)) * torch.sigmoid(self.right_bn(self.right_conv(a)))
+        h = self.left_bn(self.left_conv(a)) * tl.sigmoid(self.right_bn(self.right_conv(a)))
         out = self.out_bn(self.out_conv(h))
         return F.elu(out + x), out
 
@@ -88,5 +88,5 @@ class GRN(nn.Module):
             h = h + out
         h = F.elu(self.bn3(self.conv1d_3(h)))
         h = self.bn4(self.conv1d_4(h))
-        mask = torch.sigmoid(self.bn5(self.conv1d_5(h)))  # [B, 161, T]
+        mask = tl.sigmoid(self.bn5(self.conv1d_5(h)))  # [B, 161, T]
         return x * mask.transpose(1, 2)

@@ -66,18 +66,41 @@ class TimeEmbedding(nn.Module):
         return F.silu(self.proj2(F.silu(self.proj1(x))))
 
 
+def batch_norm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     eps: float, channel_dim: int = 1):
+    """Train-mode BatchNorm as ``flax.linen.BatchNorm`` computes it:
+    ``(y, mean, var)``.  The statistics are taken in float32 whatever
+    ``x``'s dtype (flax promotes a bf16 input for them), the variance the
+    *biased* one, ``E[x^2] - E[x]^2`` clipped at 0; the normalisation runs
+    in float32 on the float32 ``weight`` and ``bias`` and the result is
+    rounded once to ``x``'s dtype (a module of ``dtype=bfloat16``).  In
+    float32 every op is the one it always was."""
+    xf = x.float()
+    dims = [d for d in range(x.ndim) if d != channel_dim % x.ndim]
+    mean = xf.mean(dims)
+    var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    shape = [1] * x.ndim
+    shape[channel_dim] = -1
+    scale = weight * torch.rsqrt(var + eps)
+    y = (xf - mean.view(shape)) * scale.view(shape) + bias.view(shape)
+    return y.to(x.dtype), mean, var
+
+
 class _FlaxBatchStats:
     """Train mode as ``flax.linen.BatchNorm`` computes it (``momentum=0.9``,
-    eps 1e-5; ``models/layers.py::BatchNorm`` of the JAX package): the
-    batch variance is the *biased* one, ``E[x^2] - E[x]^2`` clipped at 0,
-    and it is that variance that enters ``running_var`` (torch's own
-    BatchNorm stores the unbiased one).  The running statistics move by
-    ``0.1`` of the batch statistics; ``num_batches_tracked`` counts the
-    updates, which also marks the module as changed for whoever caches
-    operands folded from it (``Enhancer.packs``).  Eval mode is
-    torch's (running statistics); with the statistics cast to another
-    dtype (a cast copy of the net, as the JAX package casts its variables)
-    it is flax's inference arithmetic, op by op in that dtype."""
+    eps 1e-5; ``models/layers.py::BatchNorm`` of the JAX package):
+    :func:`batch_norm_train`, whose biased variance is what enters
+    ``running_var`` (torch's own BatchNorm stores the unbiased one).  The
+    running statistics move by ``0.1`` of the batch statistics;
+    ``num_batches_tracked`` counts the updates, which also marks the module
+    as changed for whoever caches operands folded from it
+    (``Enhancer.packs``).  A bf16 input (a bf16-compute forward,
+    ``models/precision.py``) keeps the float32 parameters and statistics.
+    Eval mode is torch's (running statistics; a bf16 input with float32
+    statistics is normalised in f32 and rounded once, as flax does); with
+    the statistics cast to another dtype (a cast copy of the net, as the
+    JAX package casts its variables) it is flax's inference arithmetic, op
+    by op in that dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -90,17 +113,18 @@ class _FlaxBatchStats:
             mul = torch.rsqrt(var).to(self.running_var.dtype) * self.weight
             return (x - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         self._check_input_dim(x)
-        dims = [0, *range(2, x.ndim)]
-        mean = x.mean(dims)
-        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(m * mean)
-            self.running_var.mul_(1.0 - m).add_(m * var)
-            self.num_batches_tracked.add_(1)
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        scale = self.weight * torch.rsqrt(var + self.eps)
-        return (x - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
+        y, mean, var = batch_norm_train(x, self.weight, self.bias, self.eps)
+        self.update_stats(mean, var)
+        return y
+
+    @torch.no_grad()
+    def update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Move the running statistics ``0.1`` towards a batch's, flax's
+        momentum, and count the update."""
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(m * mean)
+        self.running_var.mul_(1.0 - m).add_(m * var)
+        self.num_batches_tracked.add_(1)
 
 
 class BatchNorm1d(_FlaxBatchStats, nn.BatchNorm1d):
@@ -193,11 +217,19 @@ class MultiHeadAttention(nn.Module):
         nn.init.uniform_(self.out_proj_weight, -1.0 / math.sqrt(d), 1.0 / math.sqrt(d))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, length, d = x.shape
-        nh = self.num_heads
-        qkv = linear(x, self.in_proj_weight, self.in_proj_bias)
-        q, k, v = qkv.view(n, length, 3, nh, d // nh).permute(2, 0, 3, 1, 4)
-        root = float(torch.tensor(math.sqrt(d // nh), dtype=x.dtype))
-        attn = softmax(q @ k.transpose(-1, -2) / root, dim=-1)
-        out = (attn @ v).transpose(1, 2).reshape(n, length, d)
-        return linear(out, self.out_proj_weight, self.out_proj_bias)
+        return attention(x, self.in_proj_weight, self.in_proj_bias, self.out_proj_weight,
+                         self.out_proj_bias, self.num_heads)
+
+
+def attention(x, in_proj_weight, in_proj_bias, out_proj_weight, out_proj_bias,
+              num_heads: int) -> torch.Tensor:
+    """:class:`MultiHeadAttention`'s forward on the given parameters, all
+    in ``x``'s dtype."""
+    n, length, d = x.shape
+    nh = num_heads
+    qkv = linear(x, in_proj_weight, in_proj_bias)
+    q, k, v = qkv.view(n, length, 3, nh, d // nh).permute(2, 0, 3, 1, 4)
+    root = float(torch.tensor(math.sqrt(d // nh), dtype=x.dtype))
+    attn = softmax(q @ k.transpose(-1, -2) / root, dim=-1)
+    out = (attn @ v).transpose(1, 2).reshape(n, length, d)
+    return linear(out, out_proj_weight, out_proj_bias)

@@ -26,8 +26,10 @@ import torch
 
 from prior_diffuse_tpu_torch.config import ExperimentConfig
 from prior_diffuse_tpu_torch.data.wavio import read_wav, write_wav
+from prior_diffuse_tpu_torch.models.precision import compute_view
 from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
-from prior_diffuse_tpu_torch.serving.enhancer import serving_copy, serving_device, weights_key
+from prior_diffuse_tpu_torch.serving.enhancer import (ComputeEnhancer, serving_copy,
+                                                      serving_device, weights_key)
 from prior_diffuse_tpu_torch.signal.compress import decompress_spec, from_mag_phase
 from prior_diffuse_tpu_torch.signal.normalize import rms_scale
 from prior_diffuse_tpu_torch.training.base import mag_features, spec_features
@@ -62,22 +64,33 @@ class PriorServer:
     ``[B, L]``, no K3 and no residual DDPM.  It is
     ``ComplexTrainer``'s serving path (JAX ``complex_trainer.py:193-210``)
     and :func:`prior_only_server`'s.  ``net`` is any complex prior of the
-    model table (``[B, T, 161, 2] -> [B, T, 161, 2]``); in a dtype other
-    than float32 it runs as its ``serving_copy``, as the JAX package serves
-    it."""
+    model table (``[B, T, 161, 2] -> [B, T, 161, 2]``); in a ``dtype``
+    other than float32 it runs as its ``serving_copy``, as the JAX package
+    serves it.  A prior trained in bf16 takes ``compute_dtype`` instead: its
+    bf16-compute module forward on the float32 weights
+    (``models/precision.py::compute_view``), the estimate cast to float32
+    for the ISTFT (K2 is float32 only; JAX's ``ComplexTrainer`` runs a bf16
+    ISTFT there, ROADMAP Queue 3)."""
 
     def __init__(self, net, cfg: ExperimentConfig, device="cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 compute_dtype: torch.dtype = torch.float32):
+        if dtype != torch.float32 and compute_dtype != torch.float32:
+            raise ValueError("a server casts its weights (dtype) or computes on the f32 "
+                             "weights (compute_dtype), not both")
         self.device = serving_device(device)
         self.module = net.to(self.device)
         self.cfg = cfg
         self.dtype = dtype
+        self.compute_dtype = compute_dtype
+        self.view = compute_view(self.module, compute_dtype)
         self._net, self._key = None, None
 
     def net(self):
-        """The prior in the server's dtype: the module itself in float32,
-        else its ``serving_copy``, made again when a weight changed."""
-        net = self.module.eval()
+        """The prior in the server's dtype: the module itself in float32
+        (its ``compute_view`` with a ``compute_dtype``), else its
+        ``serving_copy``, made again when a weight changed."""
+        net = self.view.eval()
         if self.dtype == torch.float32:
             return net
         key = weights_key(net)
@@ -107,17 +120,19 @@ class MagServer(PriorServer):
     compression -> the compressed magnitude through the prior (GRN, ``[B,
     T, 161] -> [B, T, 161]``) -> the estimate on the **noisy** phase ->
     decompress -> ISTFT (K2) -> ``[B, L]``.  Float32, as the JAX trainer
-    serves it."""
+    serves it, or the prior's bf16-compute forward (``compute_dtype``) for a
+    GRN trained in bf16 (its output is float32, so the rest is too)."""
 
-    def __init__(self, net, cfg: ExperimentConfig, device="cuda"):
-        super().__init__(net, cfg, device)
+    def __init__(self, net, cfg: ExperimentConfig, device="cuda",
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(net, cfg, device, compute_dtype=compute_dtype)
 
     @torch.no_grad()
     def enhance_batch(self, wav, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``wav [B, L]`` -> ``[B, L]`` float32.  Draws nothing."""
         wav = torch.as_tensor(wav, dtype=torch.float32).to(self.device).contiguous()
         feat, phase = mag_features(wav, self.cfg.train)
-        spec = decompress_spec(from_mag_phase(self.prior(feat), phase),
+        spec = decompress_spec(from_mag_phase(self.prior(feat).float(), phase),
                                self.cfg.train.feat_type)
         return kstft.istft(spec.contiguous(), wav.shape[-1])
 
@@ -130,7 +145,12 @@ def prior_only_server(enhancer, dtype: Optional[torch.dtype] = None) -> PriorSer
     ``enhance_batch`` and ``cfg``, so :func:`enhance_files` and
     ``streaming.enhance_long`` take it where they take an ``Enhancer``.
     Chain-vs-prior comparisons on identical weights isolate the residual
-    DDPM's contribution."""
+    DDPM's contribution.  The prior of a :class:`ComputeEnhancer` (bf16
+    training) runs in its compute dtype on the float32 weights, as the JAX
+    package's does for a bf16-trained trainer, unless ``dtype`` is given."""
+    if isinstance(enhancer, ComputeEnhancer) and dtype is None:
+        return PriorServer(enhancer.dis, enhancer.cfg, enhancer.device,
+                           compute_dtype=enhancer.compute_dtype)
     return PriorServer(enhancer.dis, enhancer.cfg, enhancer.device, dtype or enhancer.dtype)
 
 

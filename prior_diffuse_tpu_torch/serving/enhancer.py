@@ -32,6 +32,13 @@ packed from the current weights and repacked whenever a parameter or BN
 statistic changes.  Steps 2-4 are
 :meth:`Enhancer.chain`, which the trainer's evaluation runs on its
 spectra too.
+
+A model *trained* in bf16 (``train.compute_dtype: bfloat16``) is not served
+so: :class:`ComputeEnhancer` runs it as the JAX package evaluates and serves
+it by default (``serve_dtype`` float32): the prior and the denoiser as their
+bf16-compute modules on the float32 weights (``models/precision.py``),
+eval mode, two separate decoders, the chain in float32; K1 and K2 run, K3
+does not (JAX's ``_resolve_fused`` picks the flax modules there).
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from prior_diffuse_tpu_torch.diffusion.sampler import (diffusion_mode, is_noisel
 from prior_diffuse_tpu_torch.diffusion.schedule import inference_schedule
 from prior_diffuse_tpu_torch.models.diffunet import DiffUNet
 from prior_diffuse_tpu_torch.models.fused_forward import fused_unet_forward, pack_unet
+from prior_diffuse_tpu_torch.models.precision import compute_view
 from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
 from prior_diffuse_tpu_torch.signal.compress import decompress_spec
 from prior_diffuse_tpu_torch.training.base import spec_features
@@ -223,20 +231,16 @@ class Enhancer:
         sig = sigma_mask(x_init) if self.sigma else None
         cond = self.conditioner(feat, c, x_init)
 
-        shape = tuple(x_init.shape)
-        noise = None
-        if not is_noiseless(self.sched):
-            noise = self._draw((diff.n_avg, self.sched.num_steps, *shape), generator)
-        if x_T is None and not diff.zero_init:
-            x_T = self._draw((diff.n_avg, *shape), generator)
-        elif x_T is not None:
-            x_T = x_T.to(device=self.device, dtype=dt)
-
+        noise, x_T = self._draws(tuple(x_init.shape), generator, x_T)
         audio = reverse_sample(
             lambda x, t: fused_unet_forward(pack_ddpm, x, cond, t),
             x_init, x_T, self.sched, sig_mask=sig, noise=noise,
             zero_init=diff.zero_init, predict=diff.predict, mode=self.mode)
         return audio.float() * c, x_init
+
+    # the trainer's evaluation runs the serving chain (in float32 the JAX
+    # package's evaluation and serving agree)
+    eval_chain = chain
 
     def conditioner(self, feat, c, x_init):
         """The DDPM's conditioner, JAX ``ComplexDDPMTrainer._cond``
@@ -251,7 +255,81 @@ class Enhancer:
         return (torch.cat([x_init, feat / c], dim=-1) if self.cfg.diffusion.cond_noisy
                 else x_init)
 
+    def _draws(self, shape, generator, x_T):
+        """The chain's step noise (None for a noiseless schedule) and initial
+        draws ``x_T`` (drawn unless given, then cast) in the chain's dtype."""
+        diff = self.cfg.diffusion
+        noise = None
+        if not is_noiseless(self.sched):
+            noise = self._draw((diff.n_avg, self.sched.num_steps, *shape), generator)
+        if x_T is None and not diff.zero_init:
+            x_T = self._draw((diff.n_avg, *shape), generator)
+        elif x_T is not None:
+            x_T = x_T.to(device=self.device, dtype=self.dtype)
+        return noise, x_T
+
     def _draw(self, shape, generator):
         if generator is None:
             raise ValueError("pass a torch.Generator: the chain draws random numbers")
         return torch.randn(shape, generator=generator, device=self.device, dtype=self.dtype)
+
+
+class ComputeEnhancer(Enhancer):
+    """Evaluate and serve nets trained in ``compute_dtype`` (bf16 training)
+    as the JAX package does by default (``ddpm_trainer.py:363-384`` and
+    ``:574-654`` with ``serve_dtype`` float32): the prior and the denoiser
+    run as their ``compute_view`` in ``compute_dtype`` on their float32
+    weights, in eval mode, with the two ``Decoder`` modules; the chain, its
+    draws and the ISTFT run in float32.  K1 and K2 run; K3 does not (JAX
+    runs the flax modules here, ``_resolve_fused`` -> ``""``).  Not
+    ``Enhancer(dtype=torch.bfloat16)``, the bf16 *serving* path (cast
+    weights, packed encoder on K3-bf16, the dual decoder)."""
+
+    def __init__(self, dis, ddpm, cfg: ExperimentConfig = ExperimentConfig(),
+                 device="cuda", sigma: bool = False,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(dis, ddpm, cfg, device, sigma)
+        self.compute_dtype = compute_dtype
+        self.views = (compute_view(self.dis, compute_dtype),
+                      compute_view(self.ddpm, compute_dtype))
+
+    def packs(self):
+        raise TypeError("a bf16-compute enhancer runs the modules; it packs nothing")
+
+    @torch.no_grad()
+    def prior(self, feat: torch.Tensor) -> torch.Tensor:
+        """The prior's eval-mode bf16-compute forward of ``feat`` (float32);
+        its output in the prior's own dtype (bf16, or float32 where the
+        model casts back, as GRN and some DB-AIAT variants do)."""
+        return self.views[0].eval()(feat)
+
+    @torch.no_grad()
+    def chain(self, feat: torch.Tensor, generator: Optional[torch.Generator] = None,
+              x_T: Optional[torch.Tensor] = None, prior_dtype_x_init: bool = False):
+        """As :meth:`Enhancer.chain` with the nets in ``compute_dtype`` and
+        the chain in float32: JAX's ``enhance_batch`` (``x_init`` the prior's
+        output cast to float32, then divided by ``c``) or, with
+        ``prior_dtype_x_init``, its ``_eval_step`` (``x_init`` divided by
+        ``c`` in the prior's dtype, its sigma mask in that dtype too)."""
+        diff = self.cfg.diffusion
+        dis, ddpm = (v.eval() for v in self.views)
+        out = dis(feat)
+        x_init = (out if prior_dtype_x_init else out.float()) / diff.scale_c
+        sig = sigma_mask(x_init) if self.sigma else None
+        cond = self.conditioner(feat, diff.scale_c, x_init)
+
+        noise, x_T = self._draws(tuple(x_init.shape), generator, x_T)
+
+        def model_fn(x, t):
+            return (ddpm(x, t) if cond is None else ddpm(x, cond, t)).float()
+
+        audio = reverse_sample(
+            model_fn, x_init, x_T, self.sched, sig_mask=sig, noise=noise,
+            zero_init=diff.zero_init, predict=diff.predict, mode=self.mode,
+            dtype=torch.float32)
+        return audio * diff.scale_c, x_init
+
+    def eval_chain(self, feat: torch.Tensor, generator: Optional[torch.Generator] = None,
+                   x_T: Optional[torch.Tensor] = None):
+        """The trainer's evaluation: :meth:`chain` as JAX's ``_eval_step``."""
+        return self.chain(feat, generator, x_T, prior_dtype_x_init=True)

@@ -1,7 +1,10 @@
 """ComplexTrainer: a prior trained alone in the complex domain.
 
 The counterpart of ``prior_diffuse_tpu/training/complex_trainer.py`` on
-one device, in float32: the prior of ``model.name`` (``GCRN`` for
+one device, in float32 or in bf16 compute (``train.compute_dtype:
+bfloat16``: the prior's ``models/precision.py::compute_view`` on its
+float32 parameters, the estimate cast to float32 before the loss, JAX
+``complex_trainer.py:98-104``): the prior of ``model.name`` (``GCRN`` for
 ``conf/gcrn.yml``, ``aia_complex_trans_ri`` for ``conf/dbaiat.yml``, or
 any other prior of the model table), the loss of ``train.loss``, Adam with
 the reference's L2 decay, and the epoch loop of the JAX trainer:
@@ -15,7 +18,9 @@ the reference's L2 decay, and the epoch loop of the JAX trainer:
   on plateau, best and per-epoch checkpoints.
 
 Serving (``enhance_batch``, ``generate_wav``) is
-``serving.enhance.PriorServer``: K1, the prior, decompression, K2.
+``serving.enhance.PriorServer``: K1, the prior (in bf16 compute for a
+bf16-compute trainer, as evaluation), decompression, K2 on the estimate
+cast to float32.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from prior_diffuse_tpu_torch.config import ExperimentConfig, RunConfig
 from prior_diffuse_tpu_torch.losses import LOSSES
 from prior_diffuse_tpu_torch.metrics.compare import compare_complex
 from prior_diffuse_tpu_torch.models import complex_prior_class, model_class
+from prior_diffuse_tpu_torch.models.precision import compute_dtype, compute_view
 from prior_diffuse_tpu_torch.serving.enhance import PriorServer
 from prior_diffuse_tpu_torch.training.base import (TrainerBase, grad_groups,
                                                    group_grad_norms, spec_features)
@@ -57,17 +63,16 @@ class ComplexTrainer(TrainerBase):
 
     def __init__(self, run: RunConfig, exp: ExperimentConfig, device="cuda",
                  metrics_logger: Optional[MetricsLogger] = None):
-        if exp.train.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {exp.train.compute_dtype!r}: the port trains in "
-                "float32 only; bf16 training is ROADMAP Queue 1 item 16")
         self.prior_class(exp.model.name)  # an unknown or a model of another kind raises
         super().__init__(run, exp, device, metrics_logger)
         self.loss_fn = LOSSES[self.cfg.loss]
         # the server turns TF32 off before any train step (f32 means f32)
+        self.compute_dtype = compute_dtype(self.cfg.compute_dtype)
         self.server = self.server_class(seeded_model(run.seed, exp.model.name), exp,
-                                        device=self.device)
+                                        device=self.device, compute_dtype=self.compute_dtype)
         self.model = self.server.module
+        # the train forward: the model itself, or its bf16-compute view
+        self.model_train = compute_view(self.model, self.compute_dtype)
         self.opt = torch_adam(self.model.parameters(), exp.optim.lr, exp.optim.l2)
         self.nets = {"model": self.model}
         self.opts = {"opt": self.opt}
@@ -91,9 +96,9 @@ class ComplexTrainer(TrainerBase):
         ``norms``)."""
         feat = spec_features(noisy, self.cfg)
         label = spec_features(clean, self.cfg)
-        self.model.train()
+        self.model_train.train()
         with torch.enable_grad():
-            loss = self.loss_fn(self.model(feat), label, frame_nums)
+            loss = self.loss_fn(self.model_train(feat).float(), label, frame_nums)
             self.opt.zero_grad(set_to_none=True)
             loss.backward()
         gnorms = group_grad_norms(self.grad_groups, "model") if norms else {}
@@ -103,7 +108,8 @@ class ComplexTrainer(TrainerBase):
     @torch.no_grad()
     def _eval_step(self, noisy, clean, frame_nums):
         """The prior in inference mode on one cv batch; returns ``(est,
-        label, loss)``: the compressed estimate and label ``[B, T, 161,
+        label, loss)``: the compressed estimate (in the prior's output dtype,
+        bf16 from a bf16-compute GCRN, as JAX's) and label ``[B, T, 161,
         2]`` and the loss, a 0-d tensor."""
         feat = spec_features(noisy, self.cfg)
         label = spec_features(clean, self.cfg)

@@ -1,31 +1,43 @@
 """ComplexDDPMTrainer — the joint prior + residual DDPM trainer.
 
 The counterpart of ``prior_diffuse_tpu/training/ddpm_trainer.py`` on one
-device, in float32, with any prior of the model table (``model.name``:
-the ``DiffUNet``, ``GCRN`` or a DB-AIAT variant; JAX ``:148-155``), in the
+device, with any prior of the model table (``model.name``: the
+``DiffUNet``, ``GCRN`` or a DB-AIAT variant; JAX ``:148-155``), in the
 three diffusion modes (``pirorgrad`` and
 ``conditional`` with the ``DiffUNet1`` denoiser, ``deltamu`` with the
 unconditional ``Nocon``), with the ``cond_noisy``, ``train_t_fast``,
-``predict="x0"`` and ``x0_leak_drop`` extensions.  ``_train_step`` follows the JAX ``_train_step_impl``
-line for line:
+``predict="x0"`` and ``x0_leak_drop`` extensions, in float32 or in bf16
+compute (``train.compute_dtype: bfloat16``).  ``_train_step`` follows the
+JAX ``_train_step_impl`` line for line:
 
-* STFT (K1 on CUDA) and compression of the noisy and the clean batch;
-* one train-mode prior forward; its output, detached and divided by
-  ``c``, is ``x_init``; in joint mode the prior's loss uses the output
-  itself (in non-joint mode the prior still runs in train mode and keeps
-  its new BN statistics, but takes no update);
+* STFT (K1 on CUDA) and compression of the noisy and the clean batch, in
+  float32;
+* one train-mode prior forward; its output, cast to float32, detached and
+  divided by ``c``, is ``x_init``; in joint mode the prior's loss uses the
+  output itself (in non-joint mode the prior still runs in train mode and
+  keeps its new BN statistics, but takes no update);
 * q-sample in the mode, the train-mode DDPM forward (conditioned on
   ``x_init``, on the noisy spectrum in conditional mode, on nothing in
-  deltamu), the eps or x0 target, the sigma-weighted loss under
-  ``--sigma``;
-* ``lam * L_ddpm + L_dis``, one backward, per-group gradient norms, Adam.
+  deltamu), its output cast to float32, the eps or x0 target, the
+  sigma-weighted loss under ``--sigma``;
+* ``lam * L_ddpm + L_dis``, one backward, per-group gradient norms, Adam,
+  all in float32.
 
 The train forwards and backward are plain PyTorch (cuDNN convolutions,
-autograd), as the JAX package leaves them to XLA.  Evaluation and
-``--generate`` run the serving path (``serving.enhancer.Enhancer``): K3
-on packed encoder operands in all 7 forwards of a batch (in the 6 DDPM
-forwards with a prior other than the ``DiffUNet``, which runs unpacked,
-JAX's ``_dis_apply``), K2 in scoring.
+autograd), as the JAX package leaves them to XLA.  In bf16 compute the
+nets run as their ``models/precision.py::compute_view`` on their float32
+parameters (the optimizer's, the checkpoint's), and the DiffUNet family
+trains through ``models/fused_forward.py::dual_train_forward`` (JAX's
+default there, ``fused_train``), any other prior through its module
+forward.
+
+Evaluation and ``--generate`` of a float32 trainer run the serving path
+(``serving.enhancer.Enhancer``): K3 on packed encoder operands in all 7
+forwards of a batch (in the 6 DDPM forwards with a prior other than the
+``DiffUNet``, which runs unpacked, JAX's ``_dis_apply``), K2 in scoring.
+Those of a bf16-compute trainer run ``serving.enhancer.ComputeEnhancer``,
+as JAX evaluates and serves a bf16-trained model: the bf16-compute
+modules, the chain in float32, K1 and K2, no K3.
 """
 
 from __future__ import annotations
@@ -45,8 +57,10 @@ from prior_diffuse_tpu_torch.losses import (LOSSES, com_mse_loss, com_mse_sigma_
                                              frame_mask)
 from prior_diffuse_tpu_torch.metrics.compare import compare_complex
 from prior_diffuse_tpu_torch.models import complex_prior_class
-from prior_diffuse_tpu_torch.models.diffunet import DiffUNet1, Nocon
-from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
+from prior_diffuse_tpu_torch.models.diffunet import DiffUNet, DiffUNet1, Nocon
+from prior_diffuse_tpu_torch.models.fused_forward import dual_train_forward
+from prior_diffuse_tpu_torch.models.precision import compute_dtype, compute_view
+from prior_diffuse_tpu_torch.serving.enhancer import ComputeEnhancer, Enhancer
 from prior_diffuse_tpu_torch.training.base import (TrainerBase, grad_groups,
                                                    group_grad_norms, spec_features)
 from prior_diffuse_tpu_torch.training.optim import get_lr, set_lr, torch_adam
@@ -78,10 +92,6 @@ class ComplexDDPMTrainer(TrainerBase):
                  metrics_logger: Optional[MetricsLogger] = None):
         diff = exp.diffusion
         mode = diffusion_mode(diff)
-        if exp.train.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {exp.train.compute_dtype!r}: the port trains in "
-                "float32 only; bf16 training is ROADMAP Queue 1 item 16")
         complex_prior_class(exp.model.name)  # an unknown or a non-complex model raises
         self.x0_leak_drop = float(diff.x0_leak_drop)
         if self.x0_leak_drop and diff.predict != "x0":
@@ -108,10 +118,21 @@ class ComplexDDPMTrainer(TrainerBase):
 
         dis, ddpm = seeded_nets(run.seed, self.num_steps, 4 if self.cond_noisy else 2,
                                 self.mode, exp.model.name)
-        # the serving path holds the same modules; it also turns TF32 off
-        # before any train step (f32 means f32, as in the JAX reference)
-        self.enhancer = Enhancer(dis, ddpm, exp, device=dev, sigma=run.sigma)
+        # the evaluation path holds the same modules; it also turns TF32
+        # off before any train step (f32 means f32, as in the JAX reference)
+        self.compute_dtype = compute_dtype(self.cfg.compute_dtype)
+        if self.compute_dtype == torch.float32:
+            self.enhancer = Enhancer(dis, ddpm, exp, device=dev, sigma=run.sigma)
+        else:
+            self.enhancer = ComputeEnhancer(dis, ddpm, exp, device=dev, sigma=run.sigma,
+                                            compute_dtype=self.compute_dtype)
         self.dis, self.ddpm = self.enhancer.dis, self.enhancer.ddpm
+        # the train forwards: the nets themselves in float32; in bf16 their
+        # compute views, the DiffUNet family through the dual decoder (JAX's
+        # fused_train, the default for bf16, ddpm_trainer.py:146-147)
+        self.dis_train = compute_view(self.dis, self.compute_dtype)
+        self.ddpm_train = compute_view(self.ddpm, self.compute_dtype)
+        self.fused_train = self.compute_dtype != torch.float32
         opt_ddpm_cfg = exp.optim_ddpm or exp.optim
         self.opt_dis = torch_adam(self.dis.parameters(), exp.optim.lr, exp.optim.l2)
         self.opt_ddpm = torch_adam(self.ddpm.parameters(), opt_ddpm_cfg.lr, opt_ddpm_cfg.l2)
@@ -140,11 +161,11 @@ class ComplexDDPMTrainer(TrainerBase):
         cfg, joint, sigma = self.cfg, self.run.joint, self.run.sigma
         feat = spec_features(noisy, cfg)
         label = spec_features(clean, cfg)
-        self.dis.train()
-        self.ddpm.train()
+        self.dis_train.train()
+        self.ddpm_train.train()
         with torch.enable_grad():
             with torch.set_grad_enabled(joint):
-                dis_out = self.dis(feat)
+                dis_out = self._dis_forward(feat).float()
             if joint:
                 loss_dis = self.loss_fn(dis_out, label, frame_nums)
             else:
@@ -157,7 +178,7 @@ class ComplexDDPMTrainer(TrainerBase):
                 t_grid=self.t_grid, ab_grid=self.ab_grid,
                 leak_drop=self.x0_leak_drop, generator=self.gen, draws=draws)
             cond = self.enhancer.conditioner(feat, self.c, x_init)
-            pred = self.ddpm(x_t, t) if cond is None else self.ddpm(x_t, cond, t)
+            pred = self._ddpm_forward(x_t, cond, t).float()
             if self.predict == "x0":
                 # the chain's clean-side quantity: the residual the sampler
                 # adds back onto x_init (pirorgrad), the clean spectrum
@@ -182,6 +203,19 @@ class ComplexDDPMTrainer(TrainerBase):
             self.opt_dis.step()
         return total.detach(), loss_dis.detach(), loss_ddpm.detach(), gnorms
 
+    def _dis_forward(self, feat):
+        """The prior's train-mode forward (JAX ``_dis_apply``, train)."""
+        if self.fused_train and isinstance(self.dis, DiffUNet):
+            return dual_train_forward(self.dis_train, feat, dtype=self.compute_dtype)
+        return self.dis_train(feat)
+
+    def _ddpm_forward(self, x_t, cond, t):
+        """The denoiser's train-mode forward (JAX ``_ddpm_apply``, train);
+        ``cond`` None for ``Nocon``."""
+        if self.fused_train:
+            return dual_train_forward(self.ddpm_train, x_t, cond, t, dtype=self.compute_dtype)
+        return self.ddpm_train(x_t, t) if cond is None else self.ddpm_train(x_t, cond, t)
+
     @torch.no_grad()
     def _eval_step(self, noisy, clean, frame_nums, x_T: Optional[torch.Tensor] = None):
         """The prior and the reverse chain in inference mode on one cv batch;
@@ -191,7 +225,7 @@ class ComplexDDPMTrainer(TrainerBase):
         ``res_energy_sampled``, ``res_cos``), all 0-d tensors."""
         feat = spec_features(noisy, self.cfg)
         label = spec_features(clean, self.cfg)
-        audio, x_init = self.enhancer.chain(feat, self.gen, x_T)
+        audio, x_init = self.enhancer.eval_chain(feat, self.gen, x_T)
         loss = com_mse_loss(audio, label, frame_nums)
         # the DDPM's regression target is r_true = label/c - x_init; r_samp
         # is what the chain adds.  The chain helps iff loss < prior_mse.
@@ -289,8 +323,8 @@ class ComplexDDPMTrainer(TrainerBase):
 
     def enhance_batch(self, noisy_padded, generator: Optional[torch.Generator] = None):
         """Enhance an RMS-normalised padded batch ``[B, L] -> [B, L]``
-        through the serving path, drawing from ``generator`` (default: the
-        trainer's own)."""
+        through the serving path (the bf16-compute one for a bf16-compute
+        trainer), drawing from ``generator`` (default: the trainer's own)."""
         return self.enhancer.enhance_batch(noisy_padded, generator or self.gen)
 
     def load_best(self) -> bool:

@@ -1,7 +1,9 @@
 """MagTrainer: a magnitude prior (GRN) trained alone.
 
 The counterpart of ``prior_diffuse_tpu/training/mag_trainer.py`` on one
-device, in float32 (``conf/grn.yml``): the prior takes the compressed
+device (``conf/grn.yml``), in float32 or in bf16 compute as
+``ComplexTrainer`` (GRN's bf16-compute output is float32, so its loss,
+phase and ISTFT are too, as in JAX): the prior takes the compressed
 magnitude ``[B, T, 161]`` of the noisy batch and is trained on the clean
 one's with the loss of ``train.loss`` (``mag_mse_loss``), Adam with the
 reference's L2 decay.  Unlike the complex trainers:
@@ -53,9 +55,9 @@ class MagTrainer(ComplexTrainer):
         (empty unless ``norms``), Adam; returns ``(loss, gnorms)``."""
         feat, _ = mag_features(noisy, self.cfg)
         label, _ = mag_features(clean, self.cfg)
-        self.model.train()
+        self.model_train.train()
         with torch.enable_grad():
-            loss = self.loss_fn(self.model(feat), label, frame_nums)
+            loss = self.loss_fn(self.model_train(feat).float(), label, frame_nums)
             self.opt.zero_grad(set_to_none=True)
             loss.backward()
         gnorms = group_grad_norms(self.grad_groups, "model") if norms else {}
@@ -70,6 +72,6 @@ class MagTrainer(ComplexTrainer):
         a 0-d tensor."""
         feat, noisy_phase = mag_features(noisy, self.cfg)
         label, clean_phase = mag_features(clean, self.cfg)
-        est = self.server.prior(feat)
+        est = self.server.prior(feat).float()
         loss = self.loss_fn(est, label, frame_nums)
         return from_mag_phase(est, noisy_phase), from_mag_phase(label, clean_phase), loss

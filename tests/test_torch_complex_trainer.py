@@ -59,6 +59,7 @@ from prior_diffuse_tpu_torch.data.dataset import PairedWavDataset, _collate
 from prior_diffuse_tpu_torch.data.wavio import read_wav
 from prior_diffuse_tpu_torch.training.complex_trainer import ComplexTrainer
 from test_torch_train_step import _adam, _flat, _jax_grad, _np, _rel_l2, _steady
+from test_torch_trainer import check_trains_in_bf16
 from test_torch_trainer import root_logging  # noqa: F401 (a fixture)
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
@@ -297,11 +298,13 @@ def test_trainer_refuses_what_is_not_ported(corpus, tmp_path):
     for bad, error in ((dataclasses.replace(exp, model=tcfg.ModelConfig("GRN")), ValueError),
                        (dataclasses.replace(exp, model=tcfg.ModelConfig("DiffWave")),
                         ValueError),
-                       (dataclasses.replace(exp, train=tcfg.TrainConfig(
-                           compute_dtype="bfloat16")), NotImplementedError),
                        (dataclasses.replace(exp, model=tcfg.ModelConfig("nope")), KeyError)):
         with pytest.raises(error):
             ComplexTrainer(run, bad, device="cpu")
+    # bf16 training is ported (item 16): it builds and trains in bf16 compute
+    # (tests/test_torch_bf16_train_complex.py holds it to JAX)
+    bf16 = dataclasses.replace(exp, train=dataclasses.replace(exp.train, compute_dtype="bfloat16"))
+    check_trains_in_bf16(ComplexTrainer(run, bf16, device="cpu"))
 
 
 def test_mag_loss_gradient_at_zero_bins():

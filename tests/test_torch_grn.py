@@ -64,6 +64,7 @@ from prior_diffuse_tpu_torch.signal.compress import decompress_spec
 from prior_diffuse_tpu_torch.training.mag_trainer import MagTrainer
 from test_torch_priors import perturb
 from test_torch_train_step import _adam, _flat, _jax_grad, _np, _rel_l2, _steady
+from test_torch_trainer import check_trains_in_bf16
 from test_torch_trainer import root_logging  # noqa: F401 (a fixture)
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
@@ -428,14 +429,17 @@ def test_cli_trains_then_generates(corpus, tmp_path, root_logging):  # noqa: F81
 
 
 def test_mag_trainer_takes_a_magnitude_prior_in_f32_only(corpus, tmp_path):
+    """A magnitude prior only; in float32, and since bf16 training landed
+    (item 16) in bf16 compute too (``tests/test_torch_bf16_train_complex.py``
+    holds that to JAX): the name is the test's from before."""
     import dataclasses
 
     run = tcfg.RunConfig(assets=str(tmp_path), data_root=corpus)
     exp = _exp(tcfg)
     for bad, error in ((dataclasses.replace(exp, model=tcfg.ModelConfig("GCRN")), ValueError),
                        (dataclasses.replace(exp, model=tcfg.ModelConfig("DiffWave")),
-                        ValueError),
-                       (dataclasses.replace(exp, train=tcfg.TrainConfig(
-                           compute_dtype="bfloat16")), NotImplementedError)):
+                        ValueError)):
         with pytest.raises(error):
             MagTrainer(run, bad, device="cpu")
+    bf16 = dataclasses.replace(exp, train=dataclasses.replace(exp.train, compute_dtype="bfloat16"))
+    check_trains_in_bf16(MagTrainer(run, bf16, device="cpu"))

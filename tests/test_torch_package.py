@@ -73,6 +73,12 @@ PRIORS_SLICE = ["models", "models.layers", "models.gcrn", "models.dbaiat", "conv
 GRN_SLICE = ["models.grn", "models.diffwave", "models", "convert", "training.base",
              "training.mag_trainer", "serving.enhance", "serving.enhancer", "cli"]
 
+# the modules of bf16 training (compute_dtype: bfloat16) in the three trainers
+BF16_TRAIN_SLICE = ["models.precision", "models.layers", "models.fused_forward",
+                    "diffusion.sampler", "serving.enhancer", "serving.enhance",
+                    "training.ddpm_trainer", "training.complex_trainer",
+                    "training.mag_trainer", "metrics.compare", "config", "cli"]
+
 
 def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
@@ -82,7 +88,7 @@ def test_port_imports_without_jax():
     walked = set(proc.stdout.split())
     assert len(walked) >= 50  # every module was walked
     missing = [m for m in (TRAINING_SLICE + BF16_SERVING_SLICE + MODES_SLICE + PRIORS_SLICE
-                           + GRN_SLICE)
+                           + GRN_SLICE + BF16_TRAIN_SLICE)
                if f"prior_diffuse_tpu_torch.{m}" not in walked]
     assert not missing, missing
 

@@ -14,9 +14,11 @@ on the CPU (where every kernel wrapper takes its plain version):
 * ``compare_complex`` and ``PlateauController`` equal the JAX package's;
 * ``cli.main`` trains one epoch and ``--generate`` writes one finite wav
   per test utterance at its input length; what the port does not run
-  yet (``--draw``, ``--profile-steps``, ``--wandb``, bf16 training)
-  raises ``NotImplementedError``; a model of the wrong kind (GRN as the
-  DDPM's prior, ``MagTrainer`` with another model) ``ValueError``.
+  yet (``--draw``, ``--profile-steps``, ``--wandb``) raises
+  ``NotImplementedError``; a model of the wrong kind (GRN as the DDPM's
+  prior, ``MagTrainer`` with another model) ``ValueError``; a
+  ``compute_dtype: bfloat16`` experiment trains in bf16 compute with
+  float32 parameters and Adam state.
 """
 
 import dataclasses
@@ -237,15 +239,36 @@ def test_eval_needs_a_cv_batch(corpus, tmp_path):
     (_exp(pirorgrad=False, cond_noisy=True), ValueError),
     (_exp(pirorgrad=False, deltamu=True, predict="x0", x0_leak_drop=0.5), ValueError),
     (_exp(pirorgrad=False, deltamu=True, cond_noisy=True), ValueError),
-    # what the port does not train yet
-    (dataclasses.replace(_exp(), train=tcfg.TrainConfig(compute_dtype="bfloat16")),
-     NotImplementedError),
+    # bf16 training is ported (item 16): that configuration builds and trains
+    # in bf16 compute (tests/test_torch_bf16_train_step.py holds it to JAX)
+    (dataclasses.replace(_exp(), train=dataclasses.replace(_exp().train,
+                                                           compute_dtype="bfloat16")), None),
     # a magnitude model is not a complex-spectrum prior (MagTrainer trains GRN)
     (dataclasses.replace(_exp(), model=tcfg.ModelConfig(name="GRN")), ValueError),
 ], ids=["deltamu", "conditional", "deltamu-leak_drop", "deltamu-cond_noisy", "bf16", "grn"])
-def test_trainer_refuses_what_is_not_ported(exp, error, tmp_path):
+def test_trainer_refuses_what_is_not_ported(exp, error, corpus, tmp_path):
+    run = tcfg.RunConfig(assets=str(tmp_path), data_root=corpus, joint=True)
+    if error is None:
+        check_trains_in_bf16(ComplexDDPMTrainer(run, exp, device="cpu"))
+        return
     with pytest.raises(error):
-        ComplexDDPMTrainer(tcfg.RunConfig(assets=str(tmp_path)), exp, device="cpu")
+        ComplexDDPMTrainer(run, exp, device="cpu")
+
+
+def check_trains_in_bf16(tr):
+    """``tr`` (any of the three trainers) computes in bf16 on float32
+    parameters, and one step leaves its parameters and Adam state float32."""
+    assert tr.compute_dtype == torch.bfloat16
+    b = next(iter(tr.tr_loader))
+    out = tr._train_step(*tr.put_batch(b.noisy, b.clean, b.frame_nums), norms=False)
+    assert all(torch.isfinite(v) for v in out if isinstance(v, torch.Tensor))
+    for name, net in tr.nets.items():
+        assert all(p.dtype == torch.float32 for p in net.parameters()), name
+    for name, opt in tr.opts.items():
+        if opt.state:
+            assert all(s["exp_avg"].dtype == s["exp_avg_sq"].dtype == torch.float32
+                       for s in opt.state.values()), name
+    assert any(opt.state for opt in tr.opts.values())
 
 
 def _small_conf(tmp_path):

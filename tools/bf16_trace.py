@@ -3,6 +3,7 @@
 bfloat16, and how close the port's bf16 serving copy comes to it.
 
     python3 tools/bf16_trace.py [GCRN aia_complex_trans_ri ...]
+    python3 tools/bf16_trace.py --train [NAME ...]
     python3 tools/bf16_trace.py --parity [NAME ...]
     python3 tools/bf16_trace.py --sensitivity
 
@@ -17,6 +18,21 @@ result dtypes of its products (``dot_general``), convolutions, reductions,
 under the module that runs the scan.  The port's
 ``serving/enhancer.py::serving_copy`` mirrors the table this gives
 (PERF.md, §6).  Needs the JAX package (not the port's card machine).
+
+``--train``: the policy of bf16 *training* (``train.compute_dtype:
+bfloat16``), which is another than serving's: the trainers build each
+model with ``dtype=bfloat16`` and keep its parameters float32
+(``training/ddpm_trainer.py:148-161``, ``complex_trainer.py:36-45``,
+``mag_trainer.py:41-50``), so flax casts a weight inside the op of a module
+that has a ``dtype`` field and promotes the rest.  For each model
+(``DiffUNet``, ``DiffUNet1``, ``Nocon``, ``GCRN``, the four DB-AIAT
+variants, ``GRN``) it traces the train-mode forward (``train=True``,
+``mutable=["batch_stats"]``) and the eval-mode one on float32 variables,
+and for the DiffUNet family also ``models/fused_forward.py::
+dual_train_forward``, the bf16 train forward the DDPM trainer takes; rows
+whose operands include an f32 product or convolution mark the weights that
+enter an op unrounded.  The port's ``models/precision.py::compute_view``
+follows this table (PERF.md, §6).
 
 ``--parity``: for each prior, on the perturbed variables and the input of
 ``tests/test_torch_priors.py`` (B = 2, T = 12), the relative RMS of the
@@ -84,6 +100,48 @@ def trace(name: str, variables=None) -> dict:
     rows = defaultdict(set)
     _walk(closed.jaxpr, name, rows)
     return rows
+
+
+TRAIN_MODELS = ("DiffUNet", "DiffUNet1", "Nocon", "GCRN", "aia_complex_trans_ri",
+                "aia_complex_trans_mag", "dual_aia_complex_trans",
+                "dual_aia_trans_merge_crm", "GRN")
+
+
+def train_trace(name: str, train: bool = True, dual: bool = False) -> dict:
+    """``{module path: {op(operand dtypes)->result dtype}}`` of the
+    bf16-compute forward of ``name`` on float32 variables (its own init):
+    train mode with mutable BatchNorm statistics, or eval mode; ``dual``
+    traces ``dual_train_forward`` (the DiffUNet family only)."""
+    import jax
+    import jax.numpy as jnp
+
+    import prior_diffuse_tpu.models  # noqa: F401  (registers the models)
+    from prior_diffuse_tpu.models.fused_forward import dual_train_forward
+    from prior_diffuse_tpu.registry import MODELS
+
+    bf16 = jnp.bfloat16
+    kw = {"num_steps": 50} if name in ("DiffUNet1", "Nocon") else {}
+    model = MODELS.get(name)(dtype=bf16, **kw)
+    x = jnp.zeros((1, 4, 161) if name == "GRN" else (1, 4, 161, 2), jnp.float32)
+    t = jnp.full((1,), 3.5, jnp.float32)
+    args = {"DiffUNet1": (x, x, t), "Nocon": (x, t)}.get(name, (x,))
+    variables = model.init(jax.random.PRNGKey(0), *args)
+    if dual:
+        kw = {"DiffUNet1": dict(x_init=x, t=t), "Nocon": dict(t=t)}.get(name, {})
+        fn = lambda v, *a: dual_train_forward(v, x, dtype=bf16, **kw)  # noqa: E731
+    else:
+        fn = lambda v, *a: model.apply(  # noqa: E731
+            v, *a, train=train, mutable=["batch_stats"] if train else False)
+    closed = jax.make_jaxpr(fn)(variables, *args)
+    rows = defaultdict(set)
+    _walk(closed.jaxpr, name, rows)
+    return rows
+
+
+def _print_rows(rows) -> None:
+    for path, ops in sorted(rows.items()):
+        f32 = any("f32" in op.split("->")[0] for op in ops)
+        print(f"{'f32 ' if f32 else 'bf16'}  {path}: {'; '.join(sorted(ops))}")
 
 
 def _rel_rms(got, want) -> float:
@@ -162,6 +220,15 @@ def main(argv=None) -> None:
     if mode == "--sensitivity":
         sensitivity()
         return
+    if mode == "--train":
+        for name in args or TRAIN_MODELS:
+            runs = [("train", True, False), ("eval", False, False)]
+            if name in ("DiffUNet", "DiffUNet1", "Nocon"):
+                runs.insert(1, ("dual_train_forward", True, True))
+            for label, train, dual in runs:
+                print(f"== {name}, {label}: float32 variables, dtype=bfloat16", flush=True)
+                _print_rows(train_trace(name, train, dual))
+        return
     names = args or ["GCRN", "aia_complex_trans_ri", "aia_complex_trans_mag",
                      "dual_aia_complex_trans", "dual_aia_trans_merge_crm"]
     if mode == "--parity":
@@ -171,9 +238,7 @@ def main(argv=None) -> None:
         return
     for name in names:
         print(f"== {name}: variables and input cast to bf16")
-        for path, ops in sorted(trace(name).items()):
-            f32 = any("f32" in op.split("->")[0] for op in ops)
-            print(f"{'f32 ' if f32 else 'bf16'}  {path}: {'; '.join(sorted(ops))}")
+        _print_rows(trace(name))
 
 
 if __name__ == "__main__":
