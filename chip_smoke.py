@@ -52,7 +52,7 @@ Phases (each passes or ends the script with a non-zero exit):
    version at ``[6, 48000]``; one train step through K1 against the same
    step through the plain STFT (losses and gradients), and through K1 with
    a wrong window, which that check must reject; 10 timed steps (K1 = 2
-   launches a step);
+   launches a step); one step's device ms and kernel launches (profiler);
    ``evaluate()`` (K1 = 2, K2 = 2, K3 = 35 a cv batch), then K2 and K3
    against their plain versions at the trained weights' eval shapes; a
    checkpoint restored into a fresh trainer takes the same next step;
@@ -117,7 +117,24 @@ Phases (each passes or ends the script with a non-zero exit):
    ``--generate`` (K3 = 0); then ``ComplexTrainer`` (GCRN 8 x 48000,
    ``aia_complex_trans_ri`` 4 x 48000) and ``MagTrainer`` (GRN 8 x 48000)
    in bf16: the K1 step against the plain-STFT step, 5 timed steps with
-   peak memory, and ``enhance_batch`` (K1 = 1, K2 = 1).
+   peak memory, and ``enhance_batch`` (K1 = 1, K2 = 1);
+11. the tooling around the train loop, on phase 5's corpus: the native
+   train loader (``runtime/native.py``, built with ``g++`` at first use,
+   the trainers' default) serves all 4 batches of an epoch at 6 x 48000,
+   equal bit for bit to a numpy re-derivation of its crops (``start % (len
+   - chunk + 1)`` of one ``integers(0, 2**62)`` draw a batch), with its ms
+   a batch beside the Python path's; ``python -m prior_diffuse_tpu_torch.cli
+   --joint --sigma --profile-steps 2`` for one epoch in a process of its
+   own: its Chrome trace holds one kernel record for each launch call and
+   exactly 4 K1 launches (2 steps), and its launches a step are printed
+   beside phase 5's profiler count; ``cli.main --draw --retrain`` on that run's
+   checkpoint: one cv batch (K1 = 2, K2 = 2, K3 = 35), its ``draw_*``
+   record, and one figure call per utterance with the trainer's device
+   (recorded, not drawn: this machine may have no matplotlib); ``spec_db``
+   of one figure's waveforms on the card (K1) against the CPU (the plain
+   version), magnitudes within ``KERNEL_RTOL`` of the peak; ``python -m
+   prior_diffuse_tpu_torch.metrics.compare`` on the clean test set against
+   phase 6's ``--generate`` output prints six finite metrics.
 
 It prints a JSON line of per-kernel results before the last line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -1285,7 +1302,8 @@ def resume_check(tr, run, exp, batch) -> None:
 
 def train_phase(device, card, root: str, corpus: str):
     """Phase 5; returns the launch counts of one train step and of one cv
-    batch's evaluation, and the kernel rows at the slice's shapes."""
+    batch's evaluation, the kernel rows at the slice's shapes, and all
+    kernel launches of one step (the profiler's count)."""
     import torch
 
     from prior_diffuse_tpu_torch.config import RunConfig, load_experiment
@@ -1317,10 +1335,12 @@ def train_phase(device, card, root: str, corpus: str):
                      "plain_ms": cuda_ms(lambda: kstft.stft_plain(noisy))}}
     step_through_k1_and_plain(tr, batches[0])
     step_counts = timed_steps(tr, batches, card)
+    step_launches = step_profile(tr, batches[0], f"f32, joint, sigma, batch {TRAIN_BATCH}",
+                                 card)
     eval_counts, eval_rows = eval_and_kernels(tr, card)
     rows.update(eval_rows)
     resume_check(tr, run, exp, batches[1])
-    return step_counts, eval_counts, rows
+    return step_counts, eval_counts, rows, step_launches
 
 
 def cli_phase(root: str, corpus: str, card) -> tuple:
@@ -2054,14 +2074,16 @@ def bf16_step_card_vs_cpu(device, exp, run) -> None:
         fail(f"bf16 step card vs CPU: {', '.join(misses)} disagree")
 
 
-def step_profile(tr, batch, label: str, card) -> None:
-    """Device ms and kernel launches of one train step (no group norms)."""
+def step_profile(tr, batch, label: str, card) -> int:
+    """Device ms and kernel launches of one train step (no group norms);
+    returns the launches."""
     step = lambda: tr._train_step(*batch, norms=False)
     dev = device_ms(step, calls=3)
     top, launches = top_kernels(step)
     print(f"train step [{label}]: device {fmt(dev)} ms, {launches} kernel launches a step; "
           f"top kernels by device ms per step: " + "; ".join(
               f"{k} {kms:.3f} ({n})" for k, kms, n in top) + f"; card {card}", flush=True)
+    return launches
 
 
 def bf16_ddpm_phase(device, card, root: str, corpus: str) -> dict:
@@ -2214,6 +2236,190 @@ def bf16_train_phase(device, card, root: str, corpus: str, priors: dict) -> dict
     paths.update(bf16_prior_train_phase(device, card, root, corpus, priors))
     return paths
 
+def native_batch_np(ds, idx, starts):
+    """The native runtime's batch re-derived in numpy from ``read_wav``:
+    crop at ``start % (len - chunk + 1)``, a float32 RMS scale from a
+    sequential double energy (1 for an all-zero crop), float32 products."""
+    from prior_diffuse_tpu_torch.data.dataset import Batch
+    from prior_diffuse_tpu_torch.data.wavio import read_wav
+
+    b, chunk = len(idx), ds.chunk_length
+    out = [np.zeros((b, chunk), np.float32), np.zeros((b, chunk), np.float32),
+           np.zeros(b, np.int32), np.zeros(b, np.int32), np.zeros(b, np.float32)]
+    for i, j in enumerate(idx):
+        nz = read_wav(os.path.join(ds.noisy_root, ds.names[j]))[0]
+        cl = read_wav(os.path.join(ds.clean_root, ds.names[j]))[0]
+        n, s = min(len(nz), len(cl)), 0
+        if n > chunk:
+            s, n = int(starts[i]) % (n - chunk + 1), chunk
+        energy = np.cumsum(nz[s:s + n].astype(np.float64) ** 2)[-1]
+        c = np.float32(np.sqrt(n / energy) if energy > 0 else 1.0)
+        out[0][i, :n], out[1][i, :n] = nz[s:s + n] * c, cl[s:s + n] * c
+        out[2][i], out[3][i], out[4][i] = n // 160 + 1, n, c
+    return Batch(*out)
+
+
+def native_loader_check(corpus: str, card) -> None:
+    """Phase 11a: the native train loader (the trainers' default) builds,
+    serves every batch of an epoch at 6 x 48000, and its batches equal the
+    numpy re-derivation of its crops bit for bit; the native and the
+    Python path's ms a batch."""
+    from prior_diffuse_tpu_torch.data.dataset import PairedWavDataset, TrainLoader
+    from prior_diffuse_tpu_torch.runtime import native
+
+    if not native.available():
+        fail("the native runtime did not build or load (g++)")
+    ds = PairedWavDataset(f"{corpus}/noisy_trainset_wav", f"{corpus}/clean_trainset_wav",
+                          chunk_length=LENGTH)
+    seed, ms = 11, {}
+    for use_native in (True, False):
+        loader = TrainLoader(ds, TRAIN_BATCH, seed=seed, native=use_native)
+        t0 = time.perf_counter()
+        batches = list(loader)
+        ms[use_native] = (time.perf_counter() - t0) * 1e3 / len(batches)
+        if use_native:
+            got, served = batches, loader.native_batches
+    n = CORPUS[0] // TRAIN_BATCH
+    if len(got) != n or served != n:
+        fail(f"the native loader served {served} of {len(got)} batches, expected {n} of {n}")
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(ds))
+    for k, b in enumerate(got):
+        want = native_batch_np(ds, order[k * TRAIN_BATCH:(k + 1) * TRAIN_BATCH],
+                               rng.integers(0, 2**62, size=TRAIN_BATCH))
+        for f in ("noisy", "clean", "frame_nums", "wav_lens", "scales"):
+            a, w = getattr(b, f), getattr(want, f)
+            if a.dtype != w.dtype or not np.array_equal(a, w):
+                fail(f"native batch {k}: {f} differs from the numpy re-derivation")
+    print(f"native train loader: {native.library_path().name}, {n} of {n} batches of "
+          f"{TRAIN_BATCH} x {LENGTH} served natively, equal to the numpy re-derivation bit "
+          f"for bit; {ms[True]:.2f} ms a batch native, {ms[False]:.2f} ms on the Python "
+          f"path (host clock, one epoch, prefetch thread included); card {card}", flush=True)
+
+
+def trace_steps(trace_dir: str) -> tuple:
+    """``(kernel names, kernels launched in each step, launch calls, memsets
+    and copies)`` of the one Chrome trace under ``trace_dir``: a kernel
+    belongs to the step in whose host window it was launched (its launch
+    call shares its correlation id), a joint step ending with its second
+    ``Adam.step``."""
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"{trace_dir}: {len(files)} trace files, expected 1")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    ends = sorted(e["ts"] + e["dur"] for e in events if e.get("cat") == "user_annotation"
+                  and e["name"].startswith("Optimizer.step#Adam.step"))[1::2]
+    kernels = [(e["name"], launch.get(e.get("args", {}).get("correlation"))) for e in events
+               if e.get("cat") == "kernel"]
+    per_step = [sum(t is not None and lo < t <= hi for _, t in kernels)
+                for lo, hi in zip([float("-inf")] + ends[:-1], ends)]
+    calls = sum(e.get("cat") in ("cuda_runtime", "cuda_driver") and "Launch" in e.get("name", "")
+                for e in events)
+    copies = sum(e.get("cat") in ("gpu_memset", "gpu_memcpy") for e in events)
+    return [name for name, _ in kernels], per_step, calls, copies
+
+
+def tooling_phase(device, card, root: str, corpus: str, step_launches: int) -> dict:
+    """Phase 11: the native train loader, the CLI with ``--profile-steps``
+    (in a process of its own), ``--draw`` (its eval batch and ``spec_db``
+    on the card; the figures need matplotlib, which this machine may not
+    have, so the figure call is replaced by a recorder) and the
+    ``metrics.compare`` command line; returns the launch counts of the draw
+    batch."""
+    import re
+
+    import torch
+
+    from prior_diffuse_tpu_torch import cli, viz
+
+    native_loader_check(corpus, card)
+
+    with open(os.path.join(ROOT, "conf", "diff.yml")) as f:
+        text = f.read()
+    conf = os.path.join(root, "diff_1_epoch.yml")
+    with open(conf, "w") as f:
+        f.write(text.replace("n_epochs: 50", "n_epochs: 1"))
+    assets = os.path.join(root, "cli_profile")
+    args = ["--config", conf, "--joint", "--sigma", "--data-root", corpus, "--assets",
+            assets, "--seed", "11"]
+    traced = 2
+    # a process of its own, as a user runs it: in this long-lived process,
+    # after many profiler sessions, torch.profiler once lost kernel records
+    # of a trace's first step (PERF.md)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "prior_diffuse_tpu_torch.cli", *args,
+                           "--profile-steps", str(traced)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=900, env={**os.environ, "PYTHONPATH": ROOT})
+    if proc.returncode != 0:
+        fail(f"cli --profile-steps: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    wall = time.perf_counter() - t0
+    kernels, per_step, calls, copies = trace_steps(os.path.join(assets, "log", "diff", "trace"))
+    steps = [r for r in metric_records(os.path.join(assets, "log", "diff")) if "loss_sum" in r]
+    if len(steps) != CORPUS[0] // TRAIN_BATCH or not finite(r["loss_sum"] for r in steps):
+        fail(f"cli --profile-steps: {len(steps)} train records")
+    # K1's demangled name: "(anonymous namespace)::stft_kernel(float const*, ...)"
+    k1 = sum(bool(re.search(r"(^|::|void )stft_kernel\(", k)) for k in kernels)
+    if (k1 != 2 * traced or len(per_step) != traced or sum(per_step) != len(kernels)
+            or calls != len(kernels)):
+        fail(f"the trace holds {k1} K1 launches, expected {2 * traced}, {per_step} kernels "
+             f"in its steps, {len(kernels)} kernel records for {calls} launch calls")
+    print(f"python -m prior_diffuse_tpu_torch.cli ... --profile-steps {traced} ({wall:.1f} s "
+          f"wall, one epoch): the trace holds {len(kernels)} kernel launches, one record for "
+          f"each launch call, {per_step} in its {traced} steps (step 0 also takes the group "
+          f"gradient norms), K1 {k1}, and {copies} memsets and copies; phase 5's profiler: "
+          f"{step_launches} a step without the norms, memsets and copies included; card "
+          f"{card}", flush=True)
+    paths = {}
+
+    drawn = []
+    reset_counts()
+    with mock.patch.object(viz, "draw_comparison",
+                           lambda wavs, titles, **kw: drawn.append((list(wavs), kw))):
+        cli.main(args + ["--draw", "--retrain"])
+    torch.cuda.synchronize()
+    paths["cli_draw"] = expect_counts("cli.main --draw (one cv batch, figures recorded)",
+                                      {"stft": 2, "istft": 2, "enc_stage": 35})
+    draw = [r for r in metric_records(os.path.join(assets, "log", "diff")) if "draw_loss" in r]
+    if (len(drawn) != TRAIN_BATCH or len(draw) != 1 or not finite(
+            draw[0][k] for k in draw[0] if k.startswith("draw_"))):
+        fail(f"--draw: {len(drawn)} figures, {len(draw)} draw records")
+    for wavs, kw in drawn:
+        if (len(wavs) != 3 or torch.device(kw["device"]).type != "cuda" or not os.path.basename(
+                kw.get("path", "")).startswith("draw_b0_")
+                or not all(np.isfinite(w).all() and len(w) > 160 for w in wavs)):
+            fail("--draw: a figure's waveforms, device or path are wrong")
+    reset_counts()
+    worst_mag = worst_db = 0.0
+    for w in drawn[0][0]:
+        got, want = viz.spec_db(w, device=device), viz.spec_db(w, device="cpu")
+        mag_got, mag_want = 10 ** (got / 20), 10 ** (want / 20)
+        worst_mag = max(worst_mag, float(np.abs(mag_got - mag_want).max() / mag_want.max()))
+        near = want > want.max() - 60
+        worst_db = max(worst_db, float(np.abs(got - want)[near].max()))
+    expect_counts("spec_db of one figure's 3 waveforms on the card", {"stft": 3})
+    print(f"--draw: {len(drawn)} figures recorded, draw loss {draw[0]['draw_loss']:.5f}, "
+          f"stoi {draw[0]['draw_mean_stoi']:.3f}; spec_db on the card (K1) vs the CPU (plain): "
+          f"magnitudes {worst_mag:.2e} of the peak (bound {KERNEL_RTOL:g}), {worst_db:.2e} dB "
+          f"within 60 dB of the peak", flush=True)
+    if worst_mag > KERNEL_RTOL:
+        fail("spec_db on the card is off the CPU's")
+
+    ref, deg = os.path.join(corpus, "clean_testset_wav"), os.path.join(root, "cli", "wav", "diff")
+    proc = subprocess.run([sys.executable, "-m", "prior_diffuse_tpu_torch.metrics.compare",
+                           ref, deg], cwd=ROOT, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": ROOT})
+    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    values = re.findall(r"(csig|cbak|covl|pesq|ssnr|stoi):\s*(\S+)", line)
+    if proc.returncode != 0 or len(values) != 6 or not finite(float(v) for _, v in values):
+        fail(f"metrics.compare: exit {proc.returncode}, last line {line!r}, {proc.stderr[-2000:]}")
+    print(f"python -m prior_diffuse_tpu_torch.metrics.compare (clean test set vs phase 6's "
+          f"--generate): {line}", flush=True)
+    return paths
+
 
 def main() -> None:
     import torch
@@ -2265,8 +2471,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         mark(5)
         corpus = write_train_corpus(root)
-        paths["train_step"], paths["evaluate_cv_batch"], train_rows = train_phase(
-            device, card, root, corpus)
+        paths["train_step"], paths["evaluate_cv_batch"], train_rows, step_launches = \
+            train_phase(device, card, root, corpus)
         mark(6)
         paths["cli_train"], paths["cli_generate"] = cli_phase(root, corpus, card)
         mark(7)
@@ -2290,7 +2496,9 @@ def main() -> None:
 
         paths.update(bf16_train_phase(device, card, root, corpus,
                                       {**priors, "GRN": seeded_nets(60, device, (GRN,))[0]}))
-        mark("10 done")
+        mark(11)
+        paths.update(tooling_phase(device, card, root, corpus, step_launches))
+        mark("11 done")
 
     # (route, source, replaces, the path whose run "launches" counts)
     meta = {

@@ -3,7 +3,8 @@
 The counterpart of ``prior_diffuse_tpu/cli.py`` (reference ``main.py:20-41``):
 
     python -m prior_diffuse_tpu_torch.cli --trainer ComplexDDPMTrainer \\
-        --config conf/diff.yml [--joint] [--sigma] [--retrain] [--eval] [--generate]
+        --config conf/diff.yml [--joint] [--sigma] [--retrain] [--eval] [--generate] \\
+        [--draw] [--profile-steps N] [--wandb]
     python -m prior_diffuse_tpu_torch.cli --trainer ComplexTrainer \\
         --config conf/gcrn.yml [--retrain] [--generate]     (or conf/dbaiat.yml)
     python -m prior_diffuse_tpu_torch.cli --trainer MagTrainer \\
@@ -14,8 +15,12 @@ with assets under ``<assets>/{log,checkpoint,wav}/<doc>`` and data under
 names the torch device (``cuda`` by default; there is no fallback).  A
 yml whose ``train:`` section sets ``compute_dtype: bfloat16`` trains,
 evaluates and generates in bf16 compute with any of the three trainers.
-The flags of the JAX CLI that the port does not run yet raise
-``NotImplementedError``: ``--draw``, ``--profile-steps`` and ``--wandb``.
+As in the JAX CLI, ``ComplexDDPMTrainer`` takes ``--draw`` (score one cv
+batch and plot each utterance's spectrograms under ``<wav dir>/draw``
+instead of training) and ``--profile-steps N`` (a ``torch.profiler``
+trace of the first N train steps under ``<log dir>/trace``); the other
+trainers ignore both.  ``--wandb`` mirrors the metrics to wandb, or warns
+and goes on where wandb is not installed.
 """
 
 from __future__ import annotations
@@ -69,14 +74,6 @@ def main(argv=None):
     run, use_wandb, device = parse_args(argv)
     if run.trainer not in TRAINERS:
         raise KeyError(f"unknown trainer {run.trainer!r}; one of: {', '.join(TRAINERS)}")
-    if run.draw:
-        raise NotImplementedError("--draw (draw_audio, viz.py) is not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
-    if run.profile_steps:
-        raise NotImplementedError("--profile-steps is not ported yet "
-                                  "(ROADMAP Queue 1 item 14)")
-    if use_wandb:
-        raise NotImplementedError("--wandb is not ported yet (ROADMAP Queue 1 item 12)")
     if run.trainer == "ComplexTrainer":
         from prior_diffuse_tpu_torch.training.complex_trainer import ComplexTrainer as trainer_cls
     elif run.trainer == "MagTrainer":
@@ -88,7 +85,7 @@ def main(argv=None):
     exp = load_experiment(run.config)
     logging.info("Run = %s", dataclasses.asdict(run))
     logging.info("Experiment = %s", dataclasses.asdict(exp))
-    metrics = MetricsLogger(run.log_dir)
+    metrics = MetricsLogger(run.log_dir, use_wandb=use_wandb)
     try:
         trainer = trainer_cls(run, exp, device=device, metrics_logger=metrics)
         if run.generate:

@@ -10,9 +10,14 @@ The counterpart of ``prior_diffuse_tpu/data/dataset.py`` (numpy only):
   ``bucket_samples``; the STFT runs in the train/eval step on the device;
 * a background thread prefetches batches while the device computes.
 
-``TrainLoader`` is the JAX loader's Python path (``native=False``): crop
-starts are drawn in :meth:`PairedWavDataset.load_pair`, so the same seed
-gives the same batches as ``TrainLoader(..., native=False)`` there.
+``TrainLoader`` is the JAX loader, both paths: by default the native
+C++ runtime (``runtime/native.py``) decodes, crops and normalises a batch
+in one call, with one draw of crop starts a batch
+(``rng.integers(0, 2**62)``, cropped at ``start % (len - chunk + 1)``);
+the Python path (``native=False``, and the fallback for the rest of an
+epoch once the native runtime cannot serve a batch) draws each crop in
+:meth:`PairedWavDataset.load_pair`.  From one seed either path gives the
+batches of the JAX loader's same path.
 """
 
 from __future__ import annotations
@@ -143,7 +148,13 @@ class _Prefetcher:
 
 
 class TrainLoader:
-    """Shuffled fixed-chunk training batches (drop_last=True)."""
+    """Shuffled fixed-chunk training batches (drop_last=True).
+
+    Uses the native C++ runtime (decode+crop+normalize across a thread
+    pool, ``prior_diffuse_tpu_torch.runtime``) when it can serve the
+    corpus; otherwise the pure-Python path.  ``native_batches`` counts the
+    batches the native runtime served.
+    """
 
     def __init__(
         self,
@@ -151,22 +162,50 @@ class TrainLoader:
         batch_size: int,
         seed: int = 1234,
         prefetch: int = 2,
+        native: bool = True,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
         self.rng = np.random.default_rng(seed)
         self.prefetch = prefetch
+        self.native = native
+        self.native_batches = 0
 
     def __len__(self) -> int:
         return len(self.dataset) // self.batch_size
 
+    def _native_batch(self, idx) -> Optional[Batch]:
+        from prior_diffuse_tpu_torch.runtime import native
+
+        ds = self.dataset
+        noisy_paths = [os.path.join(ds.noisy_root, ds.names[j]) for j in idx]
+        clean_paths = [os.path.join(ds.clean_root, ds.names[j]) for j in idx]
+        # drawn before the call: a batch the runtime refuses still takes it
+        starts = self.rng.integers(0, 2**62, size=len(idx))
+        out = native.load_batch(
+            noisy_paths, clean_paths, ds.chunk_length, starts,
+            ds.win_size, ds.fft_num, ds.win_shift, ds.sample_rate,
+        )
+        if out is None:
+            return None
+        self.native_batches += 1
+        return Batch(*out)
+
     def __iter__(self) -> Iterator[Batch]:
         order = self.rng.permutation(len(self.dataset))
         bs = self.batch_size
+        use_native = self.native
 
         def gen():
+            nonlocal use_native
             for i in range(len(self)):
                 idx = order[i * bs : (i + 1) * bs]
+                if use_native:
+                    batch = self._native_batch(idx)
+                    if batch is not None:
+                        yield batch
+                        continue
+                    use_native = False  # fall back for the whole epoch
                 items = [
                     self.dataset.load_pair(j, crop=True, rng=self.rng) for j in idx
                 ]

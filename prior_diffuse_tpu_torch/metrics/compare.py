@@ -3,8 +3,12 @@
 The counterpart of ``prior_diffuse_tpu/metrics/compare.py``:
 ``compare_complex`` (spectrogram batches -> 6 metrics,
 ``utils/metrics.py:528-577``) and ``compare`` (two wav directories,
-``utils/metrics.py:580-604``).  The ISTFT is the port's (K2 on CUDA
-tensors); metric scoring is host-side numpy.
+``utils/metrics.py:580-604``), and its command line:
+
+    python -m prior_diffuse_tpu_torch.metrics.compare REF_DIR DEG_DIR
+
+The ISTFT is the port's (K2 on CUDA tensors); metric scoring is host-side
+numpy.
 """
 
 from __future__ import annotations
@@ -46,8 +50,14 @@ def compare_complex(
     feat_type: str = "sqrt",
 ) -> Tuple[float, float, float, float, float, float]:
     """-> mean (csig, cbak, covl, pesq, ssnr, stoi) over the batch."""
-    esti_wavs = spec_batch_to_wavs(esti, frame_nums, feat_type)
-    label_wavs = spec_batch_to_wavs(label, frame_nums, feat_type)
+    return compare_wavs(spec_batch_to_wavs(label, frame_nums, feat_type),
+                        spec_batch_to_wavs(esti, frame_nums, feat_type))
+
+
+def compare_wavs(label_wavs: Sequence[np.ndarray], esti_wavs: Sequence[np.ndarray]
+                 ) -> Tuple[float, float, float, float, float, float]:
+    """-> mean (csig, cbak, covl, pesq, ssnr, stoi) over the pairs of
+    waveforms (what :func:`compare_complex` scores after its ISTFTs)."""
     results = [compare_one(c, p, 16000) for c, p in zip(label_wavs, esti_wavs)]
     return tuple(np.mean(np.asarray(results), axis=0))
 
@@ -66,3 +76,26 @@ def compare(refdir: str, degdir: str):
         n = min(len(c), len(p))
         out.append(compare_one(c[:n], p[:n], 16000))
     return out
+
+
+def main(argv=None):
+    """Score DEG_DIR's wavs against REF_DIR's (paired by sorted name) and
+    print the mean of each metric, as the JAX package's command line does."""
+    import argparse
+    import time
+
+    p = argparse.ArgumentParser(description=main.__doc__)
+    p.add_argument("ref", help="directory of reference (clean) wavs")
+    p.add_argument("deg", help="directory of degraded (enhanced) wavs")
+    a = p.parse_args(argv)
+    t0 = time.time()
+    res = compare(a.ref, a.deg)
+    pm = np.mean(np.asarray(res), axis=0)
+    print("time: %.3f" % (time.time() - t0))
+    print("ref=", a.ref)
+    print("deg=", a.deg)
+    print("csig:%6.4f cbak:%6.4f covl:%6.4f pesq:%6.4f ssnr:%6.4f stoi:%6.4f" % tuple(pm))
+
+
+if __name__ == "__main__":
+    main()

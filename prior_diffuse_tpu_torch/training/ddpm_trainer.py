@@ -38,11 +38,17 @@ forwards of a batch (in the 6 DDPM forwards with a prior other than the
 Those of a bf16-compute trainer run ``serving.enhancer.ComputeEnhancer``,
 as JAX evaluates and serves a bf16-trained model: the bf16-compute
 modules, the chain in float32, K1 and K2, no K3.
+
+As in JAX, ``run.draw`` replaces training with :meth:`draw_audio` (one cv
+batch scored and plotted) and ``run.profile_steps`` traces the first
+steps (``utils/profiler.py::trace``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 import time
 from typing import Optional
 
@@ -55,7 +61,8 @@ from prior_diffuse_tpu_torch.diffusion.sampler import diffusion_mode
 from prior_diffuse_tpu_torch.diffusion.schedule import inference_schedule
 from prior_diffuse_tpu_torch.losses import (LOSSES, com_mse_loss, com_mse_sigma_loss,
                                              frame_mask)
-from prior_diffuse_tpu_torch.metrics.compare import compare_complex
+from prior_diffuse_tpu_torch.metrics.compare import (compare_complex, compare_wavs,
+                                                     spec_batch_to_wavs)
 from prior_diffuse_tpu_torch.models import complex_prior_class
 from prior_diffuse_tpu_torch.models.diffunet import DiffUNet, DiffUNet1, Nocon
 from prior_diffuse_tpu_torch.models.fused_forward import dual_train_forward
@@ -65,6 +72,7 @@ from prior_diffuse_tpu_torch.training.base import (TrainerBase, grad_groups,
                                                    group_grad_norms, spec_features)
 from prior_diffuse_tpu_torch.training.optim import get_lr, set_lr, torch_adam
 from prior_diffuse_tpu_torch.utils.logging import MetricsLogger
+from prior_diffuse_tpu_torch.utils.profiler import trace
 
 
 def seeded_nets(seed: int, num_steps: int, cond_channels: int, mode: str = "pirorgrad",
@@ -282,8 +290,21 @@ class ComplexDDPMTrainer(TrainerBase):
                    max_steps: Optional[int] = None):
         """The reference's main loop: train epochs with a sampling eval after
         each, LR halving and early stop on plateau, best and per-epoch
-        checkpoints."""
-        n_epochs = max_epochs or self.cfg.n_epochs
+        checkpoints.  ``run.draw`` runs :meth:`draw_audio` instead;
+        ``run.profile_steps`` traces the loop until that many steps are
+        done (``utils/profiler.py::trace``, under ``<log_dir>/trace``)."""
+        if self.run.draw:  # draw-from-checkpoint mode (main loop skipped)
+            self.draw_audio()
+            return
+        profiling = contextlib.ExitStack()  # closed after step profile_steps
+        if self.run.profile_steps and self.step < self.run.profile_steps:
+            profiling.enter_context(trace(os.path.join(self.run.log_dir, "trace"),
+                                          self.device))
+        with profiling:
+            self._train_loop(max_epochs or self.cfg.n_epochs, max_steps, profiling)
+
+    def _train_loop(self, n_epochs: int, max_steps: Optional[int],
+                    profiling: contextlib.ExitStack) -> None:
         while self.epoch < n_epochs:
             logging.info("Epoch %d", self.epoch)
             if not self.run.eval:
@@ -305,6 +326,8 @@ class ComplexDDPMTrainer(TrainerBase):
                     rec.update({k: float(v) for k, v in gnorms.items()})
                     self.metrics.log(rec, step=self.step)
                     self.step += 1
+                    if self.step == self.run.profile_steps:
+                        profiling.close()
             cv_loss = self.evaluate()
             if self.run.eval:
                 return
@@ -320,6 +343,43 @@ class ComplexDDPMTrainer(TrainerBase):
             if stop:
                 logging.info("No improvement and apply early stop")
                 break
+
+    def draw_audio(self, out_dir: Optional[str] = None, max_batches: int = 1) -> str:
+        """Eval + plot path: runs reverse sampling on the first
+        ``max_batches`` cv batches, writes a noisy / clean / enhanced
+        spectrogram figure per utterance (``draw_b{batch}_{i}.png`` in
+        ``out_dir``, default ``<wav dir>/draw``), logs the loss and the 6
+        metrics as ``draw_*`` and returns ``out_dir``.
+
+        The JAX ``draw_audio`` (``ddpm_trainer.py:525-567``), a working
+        replacement for the reference's, which crashes on undefined names
+        (SURVEY 2.9).  The metrics score the same waveforms the figures
+        show, so a batch runs two ISTFTs (JAX's runs the same two twice);
+        the spectrograms are computed on the trainer's device (K1 on the
+        card).  Without matplotlib the first figure raises its
+        ``ImportError``, as in JAX."""
+        from prior_diffuse_tpu_torch.viz import draw_comparison
+
+        out_dir = out_dir or os.path.join(self.run.generated_wav_dir, "draw")
+        os.makedirs(out_dir, exist_ok=True)
+        losses, results = [], []
+        for bi, batch in enumerate(self.cv_loader):
+            if bi >= max_batches:
+                break
+            noisy, clean, frames = self.put_batch(batch.noisy, batch.clean,
+                                                  batch.frame_nums)
+            audio, label, loss, _ = self._eval_step(noisy, clean, frames)
+            losses.append(float(loss))
+            esti_wavs = spec_batch_to_wavs(audio, batch.frame_nums, self.cfg.feat_type)
+            label_wavs = spec_batch_to_wavs(label, batch.frame_nums, self.cfg.feat_type)
+            results.append(compare_wavs(label_wavs, esti_wavs))
+            for i, (e, l) in enumerate(zip(esti_wavs, label_wavs)):
+                n = batch.wav_lens[i]
+                draw_comparison(
+                    [batch.noisy[i, :n], l, e], ["noisy", "clean", "enhanced"],
+                    path=os.path.join(out_dir, f"draw_b{bi}_{i}.png"), device=self.device)
+        self.log_eval("draw", float(np.mean(losses)), np.mean(np.asarray(results), axis=0))
+        return out_dir
 
     def enhance_batch(self, noisy_padded, generator: Optional[torch.Generator] = None):
         """Enhance an RMS-normalised padded batch ``[B, L] -> [B, L]``

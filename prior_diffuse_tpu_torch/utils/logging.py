@@ -2,8 +2,9 @@
 
 The counterpart of ``prior_diffuse_tpu/utils/logging.py``: Python logging
 configured like the reference's ``main.py:53-67`` (stream + file, one
-format) and an append-only JSONL metrics sink.  The JAX package's
-optional wandb mirror is not ported (the CLI refuses ``--wandb``).
+format), an append-only JSONL metrics sink, and the optional wandb mirror
+(``--wandb``), which activates only when wandb is installed *and*
+explicitly requested.
 """
 
 from __future__ import annotations
@@ -34,11 +35,21 @@ def setup_logging(log_dir: Optional[str] = None, level: str = "info") -> None:
 class MetricsLogger:
     """Append-only JSONL metrics (one object per log call)."""
 
-    def __init__(self, log_dir: Optional[str] = None):
+    def __init__(self, log_dir: Optional[str] = None, use_wandb: bool = False,
+                 project: str = "prior-diffuse-tpu"):
         self._file = None
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
             self._file = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+        self._wandb = None
+        if use_wandb:
+            try:
+                import wandb
+
+                wandb.init(project=project)
+                self._wandb = wandb
+            except ImportError:
+                logging.warning("wandb requested but not installed; skipping")
 
     def log(self, metrics: Dict[str, float], step: Optional[int] = None) -> None:
         record = {
@@ -51,6 +62,8 @@ class MetricsLogger:
         if self._file:
             self._file.write(json.dumps(record) + "\n")
             self._file.flush()
+        if self._wandb:
+            self._wandb.log(metrics, step=step)
 
     def close(self) -> None:
         if self._file:

@@ -2,11 +2,9 @@
 
 WAV I/O and the synthetic corpora are copies and must give the same files
 and samples; the loaders must give exactly the same batches (noisy, clean,
-frame counts, lengths, RMS scales) as JAX's.  The port's ``TrainLoader``
-is the JAX loader's Python path, so it is held against
-``TrainLoader(..., native=False)``: the native loader draws its crop
-starts differently (``rng.integers(0, 2**62)`` per batch) and is not in
-the port.
+frame counts, lengths, RMS scales) as JAX's.  Here both ``TrainLoader``s
+take their Python path (``native=False``); ``tests/test_torch_native.py``
+holds the default native path and its fallback to JAX's.
 """
 
 import os
@@ -94,7 +92,7 @@ def _assert_batches_equal(got, want):
 
 def test_train_batches_equal_jax_python_loader(corpora):
     (t_tr, _), (j_tr, _) = _datasets(corpora["torch"], 8000)
-    t_loader = tds.TrainLoader(t_tr, 3, seed=9)
+    t_loader = tds.TrainLoader(t_tr, 3, seed=9, native=False)
     j_loader = jds.TrainLoader(j_tr, 3, seed=9, native=False)
     assert len(t_loader) == len(j_loader) == 2
     for _ in range(2):  # two epochs: the permutation and crop stream go on

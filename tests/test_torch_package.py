@@ -2,7 +2,9 @@
 
 * Every module of ``prior_diffuse_tpu_torch`` imports with jax, flax, optax,
   orbax, yaml and the JAX package blocked, the training, bf16 serving,
-  diffusion-mode, prior and GRN slices' included, and ``conf/diff.yml``,
+  diffusion-mode, prior, GRN, bf16-training and tooling slices' included
+  (the tooling imports matplotlib and wandb only when it draws or
+  mirrors), and ``conf/diff.yml``,
   ``conf/gcrn.yml``, ``conf/dbaiat.yml`` and ``conf/grn.yml`` load so: the machine with the GPU has none of
   them, and this test process imports jax (``conftest.py``), so an
   accidental import would pass every other test here.
@@ -34,7 +36,8 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in BLOCKED + ("matplotlib", "wandb"))
     assert not leaked, leaked
     from prior_diffuse_tpu_torch.config import load_experiment
     exp = load_experiment("conf/diff.yml")
@@ -79,6 +82,11 @@ BF16_TRAIN_SLICE = ["models.precision", "models.layers", "models.fused_forward",
                     "training.ddpm_trainer", "training.complex_trainer",
                     "training.mag_trainer", "metrics.compare", "config", "cli"]
 
+# the modules of the train-loop tooling: the native train loader,
+# --profile-steps, --draw, --wandb and the compare command line
+TOOLING_SLICE = ["runtime", "runtime.native", "data.dataset", "utils.profiler", "viz",
+                 "utils.logging", "metrics.compare", "training.ddpm_trainer", "cli"]
+
 
 def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
@@ -88,7 +96,7 @@ def test_port_imports_without_jax():
     walked = set(proc.stdout.split())
     assert len(walked) >= 50  # every module was walked
     missing = [m for m in (TRAINING_SLICE + BF16_SERVING_SLICE + MODES_SLICE + PRIORS_SLICE
-                           + GRN_SLICE + BF16_TRAIN_SLICE)
+                           + GRN_SLICE + BF16_TRAIN_SLICE + TOOLING_SLICE)
                if f"prior_diffuse_tpu_torch.{m}" not in walked]
     assert not missing, missing
 

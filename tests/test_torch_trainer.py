@@ -13,10 +13,11 @@ on the CPU (where every kernel wrapper takes its plain version):
   state all come back;
 * ``compare_complex`` and ``PlateauController`` equal the JAX package's;
 * ``cli.main`` trains one epoch and ``--generate`` writes one finite wav
-  per test utterance at its input length; what the port does not run
-  yet (``--draw``, ``--profile-steps``, ``--wandb``) raises
-  ``NotImplementedError``; a model of the wrong kind (GRN as the DDPM's
-  prior, ``MagTrainer`` with another model) ``ValueError``; a
+  per test utterance at its input length; it no longer refuses
+  ``--draw``, ``--profile-steps`` or ``--wandb`` (they reach the data;
+  ``tests/test_torch_tooling.py`` runs them); a model of the wrong kind
+  (GRN as the DDPM's prior, ``MagTrainer`` with another model)
+  ``ValueError``; a
   ``compute_dtype: bfloat16`` experiment trains in bf16 compute with
   float32 parameters and Adam state.
 """
@@ -303,13 +304,16 @@ def test_cli_trains_then_generates(corpus, tmp_path, root_logging):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--draw"], NotImplementedError, "ROADMAP"),
-    (["--profile-steps", "3"], NotImplementedError, "ROADMAP"),
-    (["--wandb"], NotImplementedError, "ROADMAP"),
+    # ported (tests/test_torch_tooling.py): the flags are taken, and the run
+    # stops only at the empty data root
+    (["--draw"], FileNotFoundError, "no wavs under"),
+    (["--profile-steps", "3"], FileNotFoundError, "no wavs under"),
+    (["--wandb"], FileNotFoundError, "no wavs under"),
     # MagTrainer is ported (tests/test_torch_grn.py); it takes GRN, not
     # conf/diff.yml's DiffUNet
     (["--trainer", "MagTrainer"], ValueError, "MagTrainer trains GRN"),
 ], ids=["draw", "profile", "wandb", "trainer"])
 def test_cli_refuses_what_is_not_ported(extra, error, match, tmp_path, root_logging):
     with pytest.raises(error, match=match):
-        cli.main(["--assets", str(tmp_path), "--device", "cpu", *extra])
+        cli.main(["--assets", str(tmp_path), "--data-root", str(tmp_path), "--device", "cpu",
+                  *extra])
