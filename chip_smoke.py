@@ -134,7 +134,22 @@ Phases (each passes or ends the script with a non-zero exit):
    of one figure's waveforms on the card (K1) against the CPU (the plain
    version), magnitudes within ``KERNEL_RTOL`` of the peak; ``python -m
    prior_diffuse_tpu_torch.metrics.compare`` on the clean test set against
-   phase 6's ``--generate`` output prints six finite metrics.
+   phase 6's ``--generate`` output prints six finite metrics;
+12. data parallelism (``parallel/``), on phase 5's corpus: ``conf/diff.yml``'s
+   trainer (``--joint --sigma``) on two ranks of a gloo group sharing the
+   card (this script with ``--dp-rank``, each rank a process of its own
+   under a timeout): each rank's sharded train loader gives its rows of the
+   one-process batch bit for bit; one step on the global batch of 6 (3 rows
+   a rank) and one on a ragged 5 (padded to 6 as JAX pads it) against the
+   one-process step on the same global batch, weights and draws (losses,
+   group norms, BN running statistics, updates; the ranks' nets equal bit
+   for bit; K1 = 2 launches a step on each rank), each world size's ms a
+   step, and ``evaluate()`` of one cv batch against the one process's (cv
+   loss, diagnostics, the six metrics scored on rank 0; K1 = 2, K3 = 35 on
+   each rank, K2 = 2 on rank 0 alone); then ``python -m
+   torch.distributed.run --standalone --nproc_per_node=1 -m
+   prior_diffuse_tpu_torch.cli`` on NCCL for one epoch (rank 0's log,
+   metrics and checkpoints) and ``--generate``.
 
 It prints a JSON line of per-kernel results before the last line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -2421,6 +2436,428 @@ def tooling_phase(device, card, root: str, corpus: str, step_launches: int) -> d
     return paths
 
 
+# ---- phase 12: data parallelism ----------------------------------------------
+
+# Two ranks share the one card over gloo (NCCL refuses two ranks on one
+# device).  Their global batches: conf/diff.yml's 6 (3 rows a rank) and a
+# ragged 5, which JAX pads to 6 with a zero row whose frame_nums is 0
+# (BatchNorm's statistics see it, the losses mask it), so the one-process
+# step it is held to takes that padded batch.  The bounds are the CPU
+# tests' (tests/test_torch_dp_trainer.py's slice, after
+# tests/test_torch_train_step.py): losses and BN running statistics 1e-5;
+# group norms 1e-3 with an atol of 1e-5 of the net's largest, and the
+# updates within 2 lr, at most 1e-3 of the gradient's norm at elements of
+# opposite sign and 1e-3 relative L2 over the steady same-sign elements
+# (the step's own rounding floor at a padded batch: python3
+# tools/dp_probe.py).  At this width the floor can be higher: the same
+# one-process step with the noisy and the clean batch times 1 + 1e-7
+# N(0, 1) gives each distance's floor in this run, and a bound below
+# DP_FLOOR times it is raised to that (printed).  The control: the ranks' step with per-rank
+# BatchNorm statistics (what DDP does without SyncBatchNorm) must miss.
+# The evaluation's loss and diagnostics as the CPU tests' eval step, its
+# metrics relative.
+DP_WORLD, DP_RAGGED = 2, 5
+DP_LOSS_RTOL, DP_NORM_RTOL, DP_STATS_RTOL, DP_UPDATE_RTOL = 1e-5, 1e-3, 1e-5, 1e-3
+DP_FLOOR = 4.0
+DP_EVAL_RTOL, DP_METRIC_RTOL = 2.5e-4, 1e-3
+DP_TIMEOUT = 300  # seconds for each group of processes
+
+
+def run_session(cmd: list, log_path: str, timeout: float = DP_TIMEOUT) -> subprocess.Popen:
+    """Start ``cmd`` from the checkout in a session of its own, output to
+    ``log_path``; wait with :func:`wait_sessions`."""
+    log = open(log_path, "w")
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                            env={**os.environ, "PYTHONPATH": ROOT}, start_new_session=True)
+    proc.log_path, proc.deadline = log_path, time.monotonic() + timeout
+    log.close()
+    return proc
+
+
+def wait_sessions(procs: list, what: str) -> None:
+    """Wait for every process of ``procs`` and all it started; at the first
+    deadline kill them all; fail unless each exited 0."""
+    import signal
+
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, p.deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)  # the session: torchrun's worker too
+            except ProcessLookupError:
+                pass
+            p.wait()
+    for i, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(p.log_path) as f:
+                fail(f"{what} [{i}] exited {p.returncode}:\n{f.read()[-3000:]}")
+
+
+def dp_trainer(inp: dict, parallel=None):
+    """Phase 12's ``ComplexDDPMTrainer``: conf/diff.yml, ``--joint --sigma``,
+    seed 7, phase 5's corpus; one process's, or one rank's."""
+    from prior_diffuse_tpu_torch.config import RunConfig, load_experiment
+    from prior_diffuse_tpu_torch.training.ddpm_trainer import ComplexDDPMTrainer
+
+    tag = "one" if parallel is None else f"rank{parallel.rank}"
+    exp = load_experiment(inp["conf"])
+    run = RunConfig(seed=7, joint=True, sigma=True, data_root=inp["corpus"],
+                    assets=os.path.join(inp["root"], f"dp_{tag}"))
+    return ComplexDDPMTrainer(run, exp, device=inp["rank_devices"][0], parallel=parallel)
+
+
+def dp_ms(fn, device) -> float:
+    """ms a call of ``fn``: CUDA events on the card (5 calls after 1), the
+    host clock in a CPU rehearsal."""
+    if device.type == "cuda":
+        return cuda_ms(fn, iters=5, warmup=1)
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def dp_step(tr, batch) -> dict:
+    """One train step with its group norms: the losses and norms (the global
+    batch's), the launches, a hash of the nets after it and, on rank 0 or
+    alone, each net's flat gradient, update and BN running statistics."""
+    import hashlib
+
+    import torch
+
+    before = {n: torch.cat([p.detach().flatten() for p in m.parameters()])
+              for n, m in tr.nets.items()}
+    reset_counts()
+    *losses, gnorms = tr._train_step(*batch)
+    rec = {"loss": [float(v) for v in losses], "counts": read_counts(),
+           "gnorms": {k: float(v) for k, v in gnorms.items()}}
+    digest = hashlib.sha256()
+    for m in tr.nets.values():
+        for t in (*m.parameters(), *m.buffers()):
+            digest.update(t.detach().cpu().numpy().tobytes())
+    rec["digest"] = digest.hexdigest()
+    if tr.is_main:
+        flat = lambda ts: torch.cat([t.detach().flatten().float() for t in ts]).cpu()
+        rec["grad"] = {n: flat(p.grad if p.grad is not None else torch.zeros_like(p)
+                               for p in m.parameters()) for n, m in tr.nets.items()}
+        rec["update"] = {n: flat(m.parameters()) - before[n].cpu() for n, m in tr.nets.items()}
+        rec["stats"] = {n: flat(b for k, b in m.named_buffers() if "running" in k)
+                        for n, m in tr.nets.items()}
+    return rec
+
+
+def dp_run(tr, batches: dict, local_stats: tuple = ()) -> dict:
+    """From one state: a step on each global batch (``batches``: name -> this
+    process's rows on the device; those named in ``local_stats`` with each
+    rank's own BatchNorm statistics, the control), the ms of a step on
+    ``batches["full"]``, and ``evaluate()`` with its records and launches
+    (rank 0 scores and writes)."""
+    from prior_diffuse_tpu_torch.models import layers
+
+    snap = copy.deepcopy(tr.ckpt_payload())
+    out = {"steps": {}}
+    for name, batch in batches.items():
+        tr.restore_payload(copy.deepcopy(snap))
+        if name in local_stats:
+            with mock.patch.object(layers, "current_parallel", lambda: None):
+                out["steps"][name] = dp_step(tr, batch)
+        else:
+            out["steps"][name] = dp_step(tr, batch)
+    tr.restore_payload(copy.deepcopy(snap))
+    out["ms"] = dp_ms(lambda: tr._train_step(*batches["full"], norms=False), tr.device)
+    tr.restore_payload(copy.deepcopy(snap))
+    reset_counts()
+    t0 = time.perf_counter()
+    out["cv_loss"] = tr.evaluate()
+    out["eval_wall"] = time.perf_counter() - t0
+    out["eval_counts"] = read_counts()
+    # what the trainer's metrics logger wrote: evaluate()'s records, rank 0's alone
+    written = os.path.exists(os.path.join(tr.run.log_dir, "metrics.jsonl"))
+    out["records"] = [{k: v for k, v in r.items() if k not in ("time", "step")}
+                      for r in (metric_records(tr.run.log_dir) if written else [])]
+    return out
+
+
+def dp_rank_main(rank: int, world: int, tmp: str) -> None:
+    """One rank of a phase-12 group, ``chip_smoke.py --dp-rank RANK WORLD
+    DIR``: the inputs of ``DIR/in.pt`` (its backend and each rank's device),
+    the results to ``DIR/out_<RANK>.pt``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from prior_diffuse_tpu_torch.parallel import distributed
+    from prior_diffuse_tpu_torch.parallel.mesh import DataParallel
+
+    inp = torch.load(os.path.join(tmp, "in.pt"), weights_only=True)
+    device = torch.device(inp["rank_devices"][rank])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    distributed.initialize(backend=inp["backend"], rank=rank, world_size=world,
+                           init_method=f"file://{os.path.join(tmp, 'pg')}", device=device)
+    try:
+        dp = DataParallel(device)
+        tr = dp_trainer(inp, dp)
+        # the sharded loader's first batch is this rank's rows of the global one
+        rows = next(iter(tr.tr_loader))
+        loader_equal = all(np.array_equal(a, dp.shard_rows(b).numpy()) for a, b in zip(
+            (rows.noisy, rows.clean, rows.frame_nums), inp["batch"]))
+        full = tr.put_batch(*inp["batch"])
+        out = dp_run(tr, {"full": full, "control": full,
+                          "ragged": tr.put_batch(*(a[:DP_RAGGED] for a in inp["batch"]))},
+                     local_stats=("control",))
+        out["loader_equal"] = loader_equal
+        torch.save(out, os.path.join(tmp, f"out_{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dp_distances(got: dict, ref: dict, lrs: dict) -> dict:
+    """How far a step (``got``) sits from the one-process step (``ref``): the
+    losses (the largest relative difference), the group norms (the largest
+    ``|a - b| / (|b| + 1e-2 x the net's largest)``: an rtol whose atol is
+    1e-2 of it times that), and, where ``got`` has them (rank 0), each net's
+    BN running statistics (the largest ``|a - b| / (|b| + 1e-2)``), gradient
+    (relative L2) and update: relative L2 over the steady elements whose
+    gradient has the same sign in both, the largest difference in units of
+    lr, and the share of the gradient's norm at elements of opposite sign."""
+    import torch
+
+    rel = lambda a, b: float(torch.linalg.vector_norm(a - b)
+                             / torch.clamp(torch.linalg.vector_norm(b), min=1e-30))
+    net_max = {}
+    for k, v in ref["gnorms"].items():
+        net_max[k.split("/")[0]] = max(v, net_max.get(k.split("/")[0], 0.0))
+    d = {"loss": max(abs(a - b) / abs(b) for a, b in zip(got["loss"], ref["loss"])),
+         "norms": max(abs(got["gnorms"].get(k, float("inf")) - b)
+                      / (b + 1e-2 * net_max[k.split("/")[0]]) for k, b in ref["gnorms"].items()),
+         "nets": {}}
+    for n in ref["grad"] if "grad" in got else ():
+        g, g_ref = got["grad"][n], ref["grad"][n]
+        du, ref_u = got["update"][n], ref["update"][n]
+        flips = torch.sign(g) != torch.sign(g_ref)
+        steady = ~flips & (g_ref.abs() >= STEADY_GRAD)
+        s, s_ref = got["stats"][n], ref["stats"][n]
+        d["nets"][n] = {"stats": float(((s - s_ref).abs() / (s_ref.abs() + 1e-2)).max()),
+                        "grad": rel(g, g_ref), "update": rel(du[steady], ref_u[steady]),
+                        "update_max": float((du - ref_u).abs().max()) / lrs[n],
+                        "flips": rel(torch.where(flips, 0.0, g_ref), g_ref)}
+    return d
+
+
+def dp_check(label: str, d: dict, floor: dict) -> list:
+    """Each distance of :func:`dp_distances` against the larger of its CPU
+    bound and DP_FLOOR times the same distance of the one-process step on the
+    perturbed batch (``floor``); the update's largest element (2 lr) and the
+    opposite-sign share (1e-3) against their fixed bounds.  Prints them all;
+    returns what misses."""
+    misses, parts = [], []
+
+    def held(name, value, cpu_bound, floor_value=0.0):
+        bound = max(cpu_bound, DP_FLOOR * floor_value)
+        parts.append(f"{name} {value:.3e} (bound {bound:.3e})")
+        if not value <= bound:
+            misses.append(name)
+
+    held("losses", d["loss"], DP_LOSS_RTOL, floor["loss"])
+    held("group norms", d["norms"], DP_NORM_RTOL, floor["norms"])
+    for n, x in d["nets"].items():
+        f = floor["nets"][n]
+        held(f"{n} BN statistics", x["stats"], DP_STATS_RTOL, f["stats"])
+        held(f"{n} same-sign updates", x["update"], DP_UPDATE_RTOL, f["update"])
+        held(f"{n} largest update difference (lr)", x["update_max"], 2.0)
+        held(f"{n} opposite-sign share", x["flips"], 1e-3)
+        parts.append(f"{n} gradient rel L2 {x['grad']:.3e} (floor {f['grad']:.3e}, printed)")
+    print(f"{label}: " + ", ".join(parts), flush=True)
+    return misses
+
+
+def dp_eval_held(got: dict, ref: dict) -> list:
+    """Rank 0's evaluation records against the one process's."""
+    want = {k: v for r in ref["records"] for k, v in r.items()}
+    have = {k: v for r in got["records"] for k, v in r.items()}
+    misses = [] if sorted(have) == sorted(want) else [f"record keys {sorted(have)}"]
+    for k, w in want.items():
+        v = have.get(k)
+        if isinstance(w, str):
+            ok = v == w
+        elif k.endswith("res_cos"):
+            ok = abs(v - w) <= DP_EVAL_RTOL
+        elif k.startswith("test_mean_"):
+            ok = abs(v - w) <= DP_METRIC_RTOL * max(abs(w), 1.0)
+        else:
+            ok = abs(v - w) <= DP_EVAL_RTOL * abs(w)
+        if not ok:
+            misses.append(f"{k} {v} vs {w}")
+    return misses
+
+
+def dp_ranks_phase(device, card, root: str, corpus: str, world: int = DP_WORLD,
+                   backend: str = "gloo", conf: str = None) -> dict:
+    """Phase 12a: the one-process run on this process (with its steps on the
+    perturbed batches, the floors), then the same run on ``world`` ranks,
+    held to it; returns the ranks' launch counts.  gloo ranks share
+    ``device``; NCCL ranks take a card each (``tools/dp_cards.py``).
+    ``conf`` (default conf/diff.yml) sets the global batch."""
+    import torch
+
+    devices = [str(device)] * world if backend == "gloo" else [f"cuda:{r}" for r in range(world)]
+    inp = {"corpus": corpus, "root": root, "backend": backend, "rank_devices": devices,
+           "conf": conf or os.path.join(ROOT, "conf", "diff.yml")}
+    one = dp_trainer(inp)
+    b = next(iter(one.tr_loader))
+    inp["batch"] = [torch.from_numpy(a) for a in (b.noisy, b.clean, b.frame_nums)]
+    rows = len(b.noisy)
+    if rows % world:  # the one process's cv batch is unpadded: its draws are the ranks' only so
+        fail(f"{world} ranks do not divide the global batch of {rows}")
+
+    def padded(a, n):  # the first n rows, padded as the ranks pad them
+        return torch.cat([a[:n], a.new_zeros((-(-n // world) * world - n, *a.shape[1:]))])
+
+    cases = {"full": [padded(a, rows) for a in inp["batch"]],
+             "ragged": [padded(a, DP_RAGGED) for a in inp["batch"]]}
+    g = torch.Generator().manual_seed(12)
+    jitter = lambda a: a * (1 + 1e-7 * torch.randn(a.shape, generator=g))
+    batches = {}
+    for name, (noisy, clean, frames) in cases.items():
+        batches[name] = one.put_batch(noisy, clean, frames)
+        batches[f"{name}_floor"] = one.put_batch(jitter(noisy), jitter(clean), frames)
+    ref = dp_run(one, batches)
+    lrs = {n: opt_of(one, n).param_groups[0]["lr"] for n in one.nets}
+    del one, batches
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    tmp = os.path.join(root, f"dp_{backend}_{world}")
+    os.makedirs(tmp)
+    torch.save(inp, os.path.join(tmp, "in.pt"))
+    t0 = time.perf_counter()
+    wait_sessions([run_session([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                                str(world), tmp], os.path.join(tmp, f"rank{r}.log"))
+                   for r in range(world)], f"{backend} rank")
+    wall = time.perf_counter() - t0
+    outs = [torch.load(os.path.join(tmp, f"out_{r}.pt"), weights_only=True)
+            for r in range(world)]
+    if not all(o["loader_equal"] for o in outs):
+        fail("a rank's sharded train loader is not its rows of the one-process batch")
+    steps = ref["steps"]
+    floors = {c: dp_distances(steps[f"{c}_floor"], steps[c], lrs) for c in cases}
+    same = lambda got, want: got == {k: want.get(k, 0) for k in got}
+    label = f"{world} {backend} ranks"
+    misses, paths = [], {}
+    for name, n in (("full", rows), ("ragged", DP_RAGGED)):
+        for r, o in enumerate(outs):
+            got = o["steps"][name]
+            misses += [f"{name} rank {r}: {m}" for m in dp_check(
+                f"{label} vs one process, step on {n} x {LENGTH} [rank {r}]",
+                dp_distances(got, steps[name], lrs), floors[name])]
+            if not same(got["counts"], {"stft": 2}):
+                misses.append(f"{name} rank {r}: launches {got['counts']}")
+            paths[f"dp_step_rank{r}"] = got["counts"]
+        if len({o["steps"][name]["digest"] for o in outs}) != 1:
+            misses.append(f"{name}: the ranks' nets differ after the step")
+    control = dp_check("the control, each rank's own BatchNorm statistics [rank 0]",
+                       dp_distances(outs[0]["steps"]["control"], steps["full"], lrs),
+                       floors["full"])
+    if not control:
+        fail("the data-parallel step check passed per-rank BatchNorm statistics")
+    for r, o in enumerate(outs):
+        if abs(o["cv_loss"] - ref["cv_loss"]) > DP_EVAL_RTOL * abs(ref["cv_loss"]):
+            misses.append(f"rank {r} cv loss {o['cv_loss']} vs {ref['cv_loss']}")
+        if not same(o["eval_counts"], {"stft": 2, "istft": 2 if r == 0 else 0, "enc_stage": 35}):
+            misses.append(f"rank {r} evaluate() launches {o['eval_counts']}")
+        paths[f"dp_eval_rank{r}"] = o["eval_counts"]
+    misses += [f"evaluate(): {m}" for m in dp_eval_held(outs[0], ref)]
+    if any(o["records"] for o in outs[1:]):
+        misses.append("a rank other than 0 wrote metrics")
+    ev = {k: v for rec in outs[0]["records"] for k, v in rec.items()}
+    pace = ("the ranks share one card and gloo copies every collective through the host, so "
+            "no scaling is claimed" if backend == "gloo" else "a card a rank")
+    print(f"the control misses on: {', '.join(control)}; the ranks' nets hash alike after each "
+          f"step; launches a step {[o['steps']['full']['counts'] for o in outs]} (one process "
+          f"{steps['full']['counts']}); evaluate() of one cv batch of {rows}: cv loss "
+          f"{outs[0]['cv_loss']:.6f} (one process {ref['cv_loss']:.6f}), prior_mse "
+          f"{ev.get('test_prior_mse', float('nan')):.6f}, pesq "
+          f"{ev.get('test_mean_pesq', float('nan')):.3f}, launches per rank "
+          f"{[o['eval_counts'] for o in outs]} (one process {ref['eval_counts']}); step "
+          f"{ref['ms']:.3f} ms in one process, {outs[0]['ms']:.3f} ms on {label} (rank 0; CUDA "
+          f"events, 5 steps of {rows} x {LENGTH}; {pace}); evaluate() "
+          f"{ref['eval_wall']:.2f} s / {outs[0]['eval_wall']:.2f} s wall; {wall:.1f} s for the "
+          f"ranks' processes; card {card}", flush=True)
+    if misses:
+        fail("data-parallel step or evaluation: " + "; ".join(misses))
+    return paths
+
+
+def dp_nccl_cli_phase(root: str, corpus: str, card, nproc: int = 1, conf: str = None) -> None:
+    """Phase 12b: ``python -m torch.distributed.run --standalone
+    --nproc_per_node=NPROC -m prior_diffuse_tpu_torch.cli``, NCCL, a card a
+    rank: one epoch of ``conf`` (default conf/diff.yml; rank 0 writes the
+    log, metrics and checkpoints), then ``--generate``."""
+    import torch
+
+    from prior_diffuse_tpu_torch.config import load_experiment
+    from prior_diffuse_tpu_torch.data.wavio import read_wav
+
+    with open(conf or os.path.join(ROOT, "conf", "diff.yml")) as f:
+        text = f.read()
+    conf = os.path.join(root, f"diff_dp{nproc}_1_epoch.yml")
+    with open(conf, "w") as f:
+        f.write(text.replace("n_epochs: 50", "n_epochs: 1"))
+    batch = load_experiment(conf).train.batch_size
+    assets = os.path.join(root, f"cli_nccl{nproc}")
+    args = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc_per_node={nproc}", "-m", "prior_diffuse_tpu_torch.cli", "--config", conf,
+            "--joint", "--sigma", "--data-root", corpus, "--assets", assets, "--seed", "11"]
+    walls = []
+    for extra in ([], ["--generate"]):
+        t0 = time.perf_counter()
+        wait_sessions([run_session(args + extra,
+                                   os.path.join(root, f"nccl{nproc}_{len(walls)}.log"))],
+                      "torch.distributed.run " + " ".join(extra))
+        walls.append(time.perf_counter() - t0)
+    log_dir = os.path.join(assets, "log", "diff")
+    with open(os.path.join(log_dir, "stdout.txt")) as f:
+        log = f.read()
+    if "backend nccl" not in log:
+        fail("the CLI under torch.distributed.run did not log an NCCL process group")
+    recs = metric_records(log_dir)
+    steps = [r for r in recs if "loss_sum" in r]
+    evals = [r for r in recs if "test_loss" in r]
+    n_steps = CORPUS[0] // batch
+    if len(steps) != n_steps or len(evals) != 1 or not finite(
+            [r["loss_sum"] for r in steps] + [evals[0]["test_loss"]]):
+        fail(f"NCCL cli: {len(steps)} train records, {len(evals)} eval records")
+    for path in ("epochs/0.pt", "best.pt"):
+        if not os.path.exists(os.path.join(assets, "checkpoint", "diff", path)):
+            fail(f"NCCL cli: no checkpoint {path}")
+    ins = sorted(glob.glob(os.path.join(corpus, "noisy_testset_wav", "*.wav")))
+    outs = sorted(glob.glob(os.path.join(assets, "wav", "diff", "*.wav")))
+    if [os.path.basename(p) for p in outs] != [os.path.basename(p) for p in ins]:
+        fail(f"NCCL --generate wrote {len(outs)} wavs for {len(ins)} inputs")
+    for i, o in zip(ins, outs):
+        x, y = read_wav(i)[0], read_wav(o)[0]
+        if y.shape != x.shape or not np.isfinite(y).all() or not np.abs(y).max() > 0:
+            fail(f"NCCL --generate: {o} has {y.shape} for {x.shape}, or no finite signal")
+    print(f"python -m torch.distributed.run --standalone --nproc_per_node={nproc} -m "
+          f"prior_diffuse_tpu_torch.cli (NCCL {torch.cuda.nccl.version()}): one epoch of "
+          f"{n_steps} steps and an evaluation in {walls[0]:.1f} s wall (cv loss "
+          f"{evals[0]['test_loss']:.5f}, step {np.median([r['step_time_ms'] for r in steps]):.3f} "
+          f"ms median on the host clock), rank 0's log, metrics and checkpoints written; "
+          f"--generate: {len(outs)} wavs at the inputs' lengths in {walls[1]:.1f} s wall; "
+          f"card {card}", flush=True)
+
+
+def dp_phase(device, card, root: str, corpus: str) -> dict:
+    """Phase 12: data parallelism (12a on gloo, 12b on NCCL); returns the
+    gloo ranks' launch counts."""
+    paths = dp_ranks_phase(device, card, root, corpus)
+    dp_nccl_cli_phase(root, corpus, card)
+    return paths
+
+
 def main() -> None:
     import torch
 
@@ -2498,7 +2935,9 @@ def main() -> None:
                                       {**priors, "GRN": seeded_nets(60, device, (GRN,))[0]}))
         mark(11)
         paths.update(tooling_phase(device, card, root, corpus, step_launches))
-        mark("11 done")
+        mark(12)
+        paths.update(dp_phase(device, card, root, corpus))
+        mark("12 done")
 
     # (route, source, replaces, the path whose run "launches" counts)
     meta = {
@@ -2531,4 +2970,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 12's group, started by dp_ranks_phase
+        dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

@@ -21,6 +21,16 @@ instead of training) and ``--profile-steps N`` (a ``torch.profiler``
 trace of the first N train steps under ``<log dir>/trace``); the other
 trainers ignore both.  ``--wandb`` mirrors the metrics to wandb, or warns
 and goes on where wandb is not installed.
+
+Data parallelism: under ``torch.distributed.run`` each process joins the
+group (NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``) and trains,
+evaluates or generates on its rows of each global batch of ``batch_size``
+(``training/base.py``); rank 0 writes the log, metrics, checkpoints and
+wavs::
+
+    python -m torch.distributed.run --nproc_per_node=N -m prior_diffuse_tpu_torch.cli ...
+
+A process started without that environment runs alone, as before.
 """
 
 from __future__ import annotations
@@ -29,14 +39,18 @@ import argparse
 import dataclasses
 import logging
 
+import torch.distributed as dist
+
 from prior_diffuse_tpu_torch.config import RunConfig, load_experiment
+from prior_diffuse_tpu_torch.parallel import distributed
+from prior_diffuse_tpu_torch.parallel.mesh import DataParallel
 from prior_diffuse_tpu_torch.utils.logging import MetricsLogger, setup_logging
 
 TRAINERS = ("ComplexDDPMTrainer", "ComplexTrainer", "MagTrainer")
 
 
 def parse_args(argv=None):
-    """-> ``(RunConfig, use_wandb, device)``; sets up logging."""
+    """-> ``(RunConfig, use_wandb, verbose, device)``."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--seed", type=int, default=1234, help="Random seed")
@@ -66,12 +80,25 @@ def parse_args(argv=None):
         joint=a.joint, eval=a.eval, sigma=a.sigma, noisy=a.noisy,
         draw=a.draw, profile_steps=a.profile_steps, data_root=a.data_root,
     )
-    setup_logging(run.log_dir, a.verbose)
-    return run, a.wandb, a.device
+    return run, a.wandb, a.verbose, a.device
 
 
 def main(argv=None):
-    run, use_wandb, device = parse_args(argv)
+    run, use_wandb, verbose, device = parse_args(argv)
+    device = distributed.local_device(device)
+    parallel = DataParallel(device) if distributed.initialize(device=device) else None
+    try:
+        setup_logging(run.log_dir, verbose)
+        if parallel is not None:
+            logging.info("process group: rank %d of %d, backend %s, device %s", parallel.rank,
+                         parallel.world, dist.get_backend(), device)
+        _run(run, use_wandb, device, parallel)
+    finally:
+        if parallel is not None:
+            dist.destroy_process_group()
+
+
+def _run(run: RunConfig, use_wandb: bool, device, parallel) -> None:
     if run.trainer not in TRAINERS:
         raise KeyError(f"unknown trainer {run.trainer!r}; one of: {', '.join(TRAINERS)}")
     if run.trainer == "ComplexTrainer":
@@ -87,7 +114,8 @@ def main(argv=None):
     logging.info("Experiment = %s", dataclasses.asdict(exp))
     metrics = MetricsLogger(run.log_dir, use_wandb=use_wandb)
     try:
-        trainer = trainer_cls(run, exp, device=device, metrics_logger=metrics)
+        trainer = trainer_cls(run, exp, device=device, metrics_logger=metrics,
+                              parallel=parallel)
         if run.generate:
             trainer.generate_wav(load_pre_train=True)
         else:

@@ -18,6 +18,15 @@ the Python path (``native=False``, and the fallback for the rest of an
 epoch once the native runtime cannot serve a batch) draws each crop in
 :meth:`PairedWavDataset.load_pair`.  From one seed either path gives the
 batches of the JAX loader's same path.
+
+Data parallelism: ``TrainLoader(shard=(rank, world))`` gives one rank its
+rows of each global batch of ``batch_size`` (the batch padded with zero
+rows, ``frame_nums`` 0, to a multiple of ``world``; rank ``r`` the ``r``-th
+contiguous share, ``parallel.mesh.shard_rows``).  Every rank draws the
+global permutation and crops from the shared seed, so the ranks' rows
+concatenated are the single-process batch bit for bit; the native runtime
+loads only this rank's files.  ``PairedWavDataset(shard=)`` is the JAX
+package's per-host split of the corpus by name.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 
 from prior_diffuse_tpu_torch.data.wavio import read_wav
+from prior_diffuse_tpu_torch.parallel.mesh import shard_rows
 from prior_diffuse_tpu_torch.signal.stft import frame_count
 
 
@@ -58,7 +68,10 @@ class PairedWavDataset:
         fft_num: int = 320,
         win_shift: int = 160,
         sample_rate: int = 16000,
+        shard: Optional[Tuple[int, int]] = None,
     ):
+        """``shard=(index, count)`` keeps every ``index``-th of ``count``
+        names (JAX ``dataset.py:54-72``'s per-host split)."""
         self.noisy_root = noisy_root
         self.clean_root = clean_root
         self.chunk_length = chunk_length
@@ -69,6 +82,9 @@ class PairedWavDataset:
         self.names = sorted(
             os.path.basename(p) for p in glob.glob(os.path.join(noisy_root, "*.wav"))
         )
+        if shard is not None and shard[1] > 1:
+            index, count = shard
+            self.names = self.names[index::count]
         if not self.names:
             raise FileNotFoundError(f"no wavs under {noisy_root}")
 
@@ -147,13 +163,29 @@ class _Prefetcher:
             yield item
 
 
+def _arrays(batch: Batch) -> tuple:
+    return batch.noisy, batch.clean, batch.frame_nums, batch.wav_lens, batch.scales
+
+
+def _pad_rows(batch: Batch, rows: int) -> Batch:
+    """``batch`` followed by zero rows (``frame_nums`` 0) up to ``rows``."""
+    return Batch(*(np.concatenate([a, np.zeros((rows - len(a), *a.shape[1:]), a.dtype)])
+                   for a in _arrays(batch)))
+
+
 class TrainLoader:
     """Shuffled fixed-chunk training batches (drop_last=True).
 
     Uses the native C++ runtime (decode+crop+normalize across a thread
     pool, ``prior_diffuse_tpu_torch.runtime``) when it can serve the
     corpus; otherwise the pure-Python path.  ``native_batches`` counts the
-    batches the native runtime served.
+    batches the native runtime served.  With ``shard=(rank, world)`` each
+    batch is this rank's rows of the global batch of ``batch_size`` (the
+    module docstring): the native runtime loads this rank's files with
+    their share of the global crop starts; the Python path loads the whole
+    batch, since its crop draws follow each file's length, and keeps this
+    rank's rows.  A batch the native runtime refuses while it is available
+    raises there: the other ranks cannot see that this one fell back.
     """
 
     def __init__(
@@ -163,33 +195,45 @@ class TrainLoader:
         seed: int = 1234,
         prefetch: int = 2,
         native: bool = True,
+        shard: Tuple[int, int] = (0, 1),
     ):
         self.dataset = dataset
         self.batch_size = batch_size
         self.rng = np.random.default_rng(seed)
         self.prefetch = prefetch
         self.native = native
+        self.shard = shard
         self.native_batches = 0
 
     def __len__(self) -> int:
         return len(self.dataset) // self.batch_size
 
     def _native_batch(self, idx) -> Optional[Batch]:
+        """This rank's rows of the global batch ``idx`` through the native
+        runtime, or None where it cannot serve them."""
         from prior_diffuse_tpu_torch.runtime import native
 
         ds = self.dataset
-        noisy_paths = [os.path.join(ds.noisy_root, ds.names[j]) for j in idx]
-        clean_paths = [os.path.join(ds.clean_root, ds.names[j]) for j in idx]
-        # drawn before the call: a batch the runtime refuses still takes it
+        # drawn before the call, for the global batch: a batch the runtime
+        # refuses still takes them
         starts = self.rng.integers(0, 2**62, size=len(idx))
+        mine = shard_rows(np.arange(1, len(idx) + 1), *self.shard)  # 0: a pad row
+        real = mine[mine > 0] - 1
         out = native.load_batch(
-            noisy_paths, clean_paths, ds.chunk_length, starts,
+            [os.path.join(ds.noisy_root, ds.names[j]) for j in idx[real]],
+            [os.path.join(ds.clean_root, ds.names[j]) for j in idx[real]],
+            ds.chunk_length, starts[real],
             ds.win_size, ds.fft_num, ds.win_shift, ds.sample_rate,
-        )
+        ) if len(real) else _arrays(_collate([], ds.chunk_length))
         if out is None:
+            if self.shard[1] > 1 and native.available():
+                raise RuntimeError(
+                    "the native runtime refused a file of this rank's rows; under data "
+                    "parallelism every rank must take the same path: convert the corpus "
+                    f"to {ds.sample_rate} Hz PCM or use TrainLoader(native=False)")
             return None
         self.native_batches += 1
-        return Batch(*out)
+        return _pad_rows(Batch(*out), len(mine))
 
     def __iter__(self) -> Iterator[Batch]:
         order = self.rng.permutation(len(self.dataset))
@@ -209,7 +253,8 @@ class TrainLoader:
                 items = [
                     self.dataset.load_pair(j, crop=True, rng=self.rng) for j in idx
                 ]
-                yield _collate(items, self.dataset.chunk_length)
+                batch = _collate(items, self.dataset.chunk_length)
+                yield Batch(*(shard_rows(a, *self.shard) for a in _arrays(batch)))
 
         return iter(_Prefetcher(gen, self.prefetch))
 

@@ -12,6 +12,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from prior_diffuse_tpu_torch.parallel.mesh import draw_rows
+
 
 def sigma_mask(x_init: torch.Tensor) -> torch.Tensor:
     """Per-bin noise scale in ``[0.5, 1]``: ``|x| / max_{T,F}|x| / 2 + 0.5``
@@ -38,14 +40,18 @@ class Draws(NamedTuple):
 def draw(clean: torch.Tensor, n_t: int, leak_drop: float,
          generator: torch.Generator) -> Draws:
     """The draws of one q-sample from ``generator``, in a fixed order:
-    timestep indices, the normal draw, then the drop mask."""
+    timestep indices, the normal draw, then the drop mask.  Inside a
+    ``parallel.mesh.DataParallel`` each is drawn for the global padded batch
+    and this rank's rows kept (``draw_rows``)."""
     batch, dev = clean.shape[0], clean.device
-    idx = torch.randint(0, n_t, (batch,), generator=generator, device=dev)
-    normal = torch.randn(clean.shape, generator=generator, device=dev,
-                         dtype=clean.dtype)
+    idx = draw_rows(lambda s: torch.randint(0, n_t, s, generator=generator, device=dev),
+                    (batch,))
+    normal = draw_rows(lambda s: torch.randn(s, generator=generator, device=dev,
+                                             dtype=clean.dtype), clean.shape)
     dropped = None
     if leak_drop > 0.0:
-        dropped = torch.rand((batch,), generator=generator, device=dev) < leak_drop
+        dropped = draw_rows(lambda s: torch.rand(s, generator=generator, device=dev),
+                            (batch,)) < leak_drop
     return Draws(idx, normal, dropped)
 
 

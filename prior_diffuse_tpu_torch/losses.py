@@ -6,11 +6,19 @@ Complex spectra are channels-last ``[B, T, F, 2]``; magnitudes
 ``[B, T, F]``.  Normalizers match the reference exactly: the mask covers
 the full frequency axis for ``frame_nums[i]`` frames, so
 ``mask.sum() == sum(frame_nums) * F`` (twice that for complex losses).
+
+Inside a ``parallel.mesh.DataParallel`` each loss is this rank's share of
+the global batch's: its numerator over the mask sum of the global batch
+(``global_sum``, without a gradient), so the ranks' losses sum to the one
+loss JAX takes over the ``dp`` mesh and their gradients sum to its
+gradient.  Outside one the mask sum is the local one, op for op as before.
 """
 
 from __future__ import annotations
 
 import torch
+
+from prior_diffuse_tpu_torch.parallel.mesh import global_sum
 
 
 def frame_mask(frame_nums: torch.Tensor, num_frames: int) -> torch.Tensor:
@@ -27,19 +35,19 @@ def _mag_mask(esti: torch.Tensor, frame_nums: torch.Tensor) -> torch.Tensor:
 def mag_mse_loss(esti, label, frame_nums):
     """Masked MSE on magnitude ``[B, T, F]`` (utils/loss.py:10-19)."""
     m = _mag_mask(esti, frame_nums)
-    return torch.sum(((esti - label) * m) ** 2) / (torch.sum(m) * esti.shape[-1])
+    return torch.sum(((esti - label) * m) ** 2) / (global_sum(torch.sum(m)) * esti.shape[-1])
 
 
 def mag_mae_loss(esti, label, frame_nums):
     """Masked MAE on magnitude (utils/loss.py:22-31)."""
     m = _mag_mask(esti, frame_nums)
-    return torch.sum(torch.abs((esti - label) * m)) / (torch.sum(m) * esti.shape[-1])
+    return torch.sum(torch.abs((esti - label) * m)) / (global_sum(torch.sum(m)) * esti.shape[-1])
 
 
 def com_mse_loss(esti, label, frame_nums):
     """Masked MSE on real-packed complex ``[B, T, F, 2]`` (utils/loss.py:34-44)."""
     m = _mag_mask(esti[..., 0], frame_nums)[..., None]  # [B, T, 1, 1]
-    return torch.sum(((esti - label) * m) ** 2) / (2.0 * torch.sum(m) * esti.shape[-2])
+    return torch.sum(((esti - label) * m) ** 2) / (2.0 * global_sum(torch.sum(m)) * esti.shape[-2])
 
 
 def com_mse_sigma_loss(esti, label, frame_nums, sigma_mask):
@@ -47,17 +55,18 @@ def com_mse_sigma_loss(esti, label, frame_nums, sigma_mask):
     error squared divided once by the per-bin ``sigma_mask``."""
     m = _mag_mask(esti[..., 0], frame_nums)[..., None]
     d = (esti - label) * m
-    return torch.sum(d * d / sigma_mask) / (2.0 * torch.sum(m) * esti.shape[-2])
+    return torch.sum(d * d / sigma_mask) / (2.0 * global_sum(torch.sum(m)) * esti.shape[-2])
 
 
 def com_mag_mse_loss(esti, label, frame_nums):
     """0.5 * (complex MSE + magnitude MSE) (utils/loss.py:59-71)."""
     m = _mag_mask(esti[..., 0], frame_nums)  # [B, T, 1]
     freq = esti.shape[-2]
-    loss1 = torch.sum(((esti - label) * m[..., None]) ** 2) / (2.0 * torch.sum(m) * freq)
+    valid = global_sum(torch.sum(m))
+    loss1 = torch.sum(((esti - label) * m[..., None]) ** 2) / (2.0 * valid * freq)
     mag_e = torch.linalg.vector_norm(esti, dim=-1)
     mag_l = torch.linalg.vector_norm(label, dim=-1)
-    loss2 = torch.sum(((mag_e - mag_l) * m) ** 2) / (torch.sum(m) * freq)
+    loss2 = torch.sum(((mag_e - mag_l) * m) ** 2) / (valid * freq)
     return 0.5 * (loss1 + loss2)
 
 

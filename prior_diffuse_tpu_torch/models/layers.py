@@ -23,6 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from prior_diffuse_tpu_torch.parallel.mesh import current as current_parallel
+
 
 def time_embedding_table(max_steps: int) -> np.ndarray:
     """``[max_steps, 128]`` sin/cos table of ``t * 10^(d * 4 / 63)``.
@@ -74,11 +76,26 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     *biased* one, ``E[x^2] - E[x]^2`` clipped at 0; the normalisation runs
     in float32 on the float32 ``weight`` and ``bias`` and the result is
     rounded once to ``x``'s dtype (a module of ``dtype=bfloat16``).  In
-    float32 every op is the one it always was."""
+    float32 every op is the one it always was.
+
+    Inside a ``parallel.mesh.DataParallel`` the statistics are those of the
+    global batch, as flax's under a ``dp`` mesh: the float32 sums of ``x``
+    and ``x^2`` and the count (exact in float32 below 2^24 elements a
+    channel), summed over the ranks by one differentiable all-reduce (so
+    the gradient is the global batch's too); outside one the ops above,
+    unchanged."""
     xf = x.float()
     dims = [d for d in range(x.ndim) if d != channel_dim % x.ndim]
-    mean = xf.mean(dims)
-    var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    dp = current_parallel()
+    if dp is None:
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    else:
+        c = xf.shape[channel_dim]
+        sums = dp.all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                                            xf.new_full((1,), xf.numel() // c)]))
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
     shape = [1] * x.ndim
     shape[channel_dim] = -1
     scale = weight * torch.rsqrt(var + eps)

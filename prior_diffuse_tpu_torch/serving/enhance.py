@@ -11,6 +11,11 @@ geometric (x1.5) ladder of ``bucket_samples`` multiples and its row count
 to a power of two, which bounds the set of batch shapes a directory
 produces.  Each wav is RMS-normalised on the host, enhanced, cut back to
 its length and de-normalised.
+
+:func:`enhance_files` takes anything with ``enhance_batch`` and ``cfg``: a
+server (``cfg`` an ``ExperimentConfig``) or, as the JAX package's, a
+trainer (``cfg`` its ``train`` section), whose ``enhance_batch`` runs each
+batch on the ranks of its data-parallel group and returns every row.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 from prior_diffuse_tpu_torch.config import ExperimentConfig
 from prior_diffuse_tpu_torch.data.wavio import read_wav, write_wav
 from prior_diffuse_tpu_torch.models.precision import compute_view
+from prior_diffuse_tpu_torch.parallel.distributed import is_main
 from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
 from prior_diffuse_tpu_torch.serving.enhancer import (ComputeEnhancer, serving_copy,
                                                       serving_device, weights_key)
@@ -154,11 +160,16 @@ def prior_only_server(enhancer, dtype: Optional[torch.dtype] = None) -> PriorSer
     return PriorServer(enhancer.dis, enhancer.cfg, enhancer.device, dtype or enhancer.dtype)
 
 
+def _train_cfg(enhancer):
+    """The ``train`` section of a server's config, or a trainer's ``cfg``."""
+    return getattr(enhancer.cfg, "train", enhancer.cfg)
+
+
 def enhance_files(enhancer, wavs: List[np.ndarray], generator: torch.Generator,
                   batch_size: Optional[int] = None,
                   bucket_samples: int = 16000) -> List[np.ndarray]:
     """Enhance a list of waveforms; returns same-length enhanced wavs."""
-    batch_size = batch_size or enhancer.cfg.train.batch_size
+    batch_size = batch_size or _train_cfg(enhancer).batch_size
     lengths = [len(w) for w in wavs]
     results: List[Optional[np.ndarray]] = [None] * len(wavs)
     for idx, rows, pad_to in _buckets(lengths, batch_size, bucket_samples):
@@ -185,18 +196,20 @@ def enhance_directory(enhancer, data_path: str, out_dir: str,
                       generator: torch.Generator) -> float:
     """Enhance every wav under ``data_path`` into ``out_dir`` (same names,
     PCM16); returns the real-time factor on the host clock (seconds of
-    audio per second of wall time, decode and write excluded)."""
+    audio per second of wall time, decode and write excluded).  In a process
+    group rank 0 alone writes."""
     os.makedirs(out_dir, exist_ok=True)
     paths = sorted(glob.glob(os.path.join(data_path, "*.wav")))
     if not paths:
         raise FileNotFoundError(f"no wavs under {data_path}")
-    sr = enhancer.cfg.train.sample_rate
+    sr = _train_cfg(enhancer).sample_rate
     wavs = [read_wav(p, sr)[0] for p in paths]
     t0 = time.perf_counter()
     enhanced = enhance_files(enhancer, wavs, generator)
     wall = time.perf_counter() - t0
-    for p, w in zip(paths, enhanced):
-        write_wav(os.path.join(out_dir, os.path.basename(p)), w, sr)
+    if is_main():
+        for p, w in zip(paths, enhanced):
+            write_wav(os.path.join(out_dir, os.path.basename(p)), w, sr)
     audio_sec = sum(len(w) for w in wavs) / sr
     rtf = audio_sec / wall if wall > 0 else float("inf")
     logging.info("enhanced %d files (%.1f s audio) in %.2f s -> RTF %.1fx",

@@ -58,6 +58,7 @@ from prior_diffuse_tpu_torch.models.diffunet import DiffUNet
 from prior_diffuse_tpu_torch.models.fused_forward import fused_unet_forward, pack_unet
 from prior_diffuse_tpu_torch.models.precision import compute_view
 from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
+from prior_diffuse_tpu_torch.parallel.mesh import draw_rows
 from prior_diffuse_tpu_torch.signal.compress import decompress_spec
 from prior_diffuse_tpu_torch.training.base import spec_features
 
@@ -261,17 +262,21 @@ class Enhancer:
         diff = self.cfg.diffusion
         noise = None
         if not is_noiseless(self.sched):
-            noise = self._draw((diff.n_avg, self.sched.num_steps, *shape), generator)
+            noise = self._draw((diff.n_avg, self.sched.num_steps, *shape), generator, 2)
         if x_T is None and not diff.zero_init:
-            x_T = self._draw((diff.n_avg, *shape), generator)
+            x_T = self._draw((diff.n_avg, *shape), generator, 1)
         elif x_T is not None:
             x_T = x_T.to(device=self.device, dtype=self.dtype)
         return noise, x_T
 
-    def _draw(self, shape, generator):
+    def _draw(self, shape, generator, batch_dim: int):
+        """A normal draw of ``shape`` whose rows run along ``batch_dim``
+        (inside a ``parallel.mesh.DataParallel``: this rank's rows of the
+        global padded batch's draw)."""
         if generator is None:
             raise ValueError("pass a torch.Generator: the chain draws random numbers")
-        return torch.randn(shape, generator=generator, device=self.device, dtype=self.dtype)
+        return draw_rows(lambda s: torch.randn(s, generator=generator, device=self.device,
+                                               dtype=self.dtype), shape, batch_dim)
 
 
 class ComputeEnhancer(Enhancer):

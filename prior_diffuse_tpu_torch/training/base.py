@@ -1,15 +1,25 @@
 """Shared trainer scaffolding.
 
-The counterpart of ``prior_diffuse_tpu/training/base.py`` on one device
-(no mesh: the JAX package's ``dp`` pad rows are TPU-only): datasets and
+The counterpart of ``prior_diffuse_tpu/training/base.py``: datasets and
 loaders, device placement, the NaN guard, eval logging, and the
 checkpoint payload with the full training context (nets, optimizers,
 step, generator, plateau state).  Host work (wav decode, metric scoring,
 checkpointing, LR control) stays in numpy.
+
+A trainer runs on one device, or as one rank of a data-parallel group
+(``parallel=parallel.mesh.DataParallel``), the port of JAX's ``dp`` mesh:
+``cfg.batch_size`` is the global batch, each rank takes its contiguous
+rows of it (zero-padded to a multiple of the ranks, as JAX's
+:meth:`TrainerBase.put_batch`), the steps run inside the group (the
+:func:`sharded` methods: global BatchNorm statistics, loss denominators and
+draws, ``parallel/mesh.py``), the gradients are summed over the ranks
+before the optimizer, and rank 0 alone writes metrics and checkpoints and
+decides the plateau's halving and stop for every rank.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 from typing import Dict, List, Optional, Tuple
 
@@ -20,6 +30,7 @@ from prior_diffuse_tpu_torch.config import ExperimentConfig, RunConfig
 from prior_diffuse_tpu_torch.convert import flax_key
 from prior_diffuse_tpu_torch.data.dataset import EvalLoader, PairedWavDataset, TrainLoader
 from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
+from prior_diffuse_tpu_torch.parallel.mesh import DataParallel
 from prior_diffuse_tpu_torch.signal.compress import compress_spec, mag_phase
 from prior_diffuse_tpu_torch.training.checkpoint import CheckpointStore
 from prior_diffuse_tpu_torch.training.plateau import PlateauController
@@ -61,18 +72,35 @@ def group_grad_norms(groups: Dict[str, List[torch.nn.Parameter]],
             for k, ps in groups.items()}
 
 
+def sharded(method):
+    """Run a trainer method inside the trainer's :class:`DataParallel` (its
+    collective hooks act), or as it is on one device."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        if self.parallel is None:
+            return method(self, *args, **kwargs)
+        with self.parallel:
+            return method(self, *args, **kwargs)
+    return run
+
+
 class TrainerBase:
     """Dataset/loader/device/checkpoint plumbing for the trainers.
 
     A subclass sets ``self.nets`` and ``self.opts`` (name -> module or
-    optimizer) and ``self.gen``, the ``torch.Generator`` of its draws."""
+    optimizer) and ``self.gen``, the ``torch.Generator`` of its draws, then
+    calls :meth:`start`.  With ``parallel``, the trainer is that rank of its
+    group, on ``parallel.device`` (``device`` is not used)."""
 
     def __init__(self, run: RunConfig, exp: ExperimentConfig, device="cuda",
-                 metrics_logger: Optional[MetricsLogger] = None):
+                 metrics_logger: Optional[MetricsLogger] = None,
+                 parallel: Optional[DataParallel] = None):
         self.run = run
         self.exp = exp
         self.cfg = exp.train
-        self.device = torch.device(device)
+        self.parallel = parallel
+        self.is_main = parallel is None or parallel.is_main
+        self.device = parallel.device if parallel is not None else torch.device(device)
         self.metrics = metrics_logger or MetricsLogger(run.log_dir)
         self.ckpt = CheckpointStore(run.checkpoint_dir)
         self.plateau = PlateauController(
@@ -97,7 +125,9 @@ class TrainerBase:
         self.tr_dataset, self.cv_dataset = datasets
         logging.info("Total %d train data.", len(self.tr_dataset))
         logging.info("Total %d eval data.", len(self.cv_dataset))
-        self.tr_loader = TrainLoader(self.tr_dataset, self.cfg.batch_size, seed=run.seed)
+        shard = (0, 1) if parallel is None else (parallel.rank, parallel.world)
+        self.tr_loader = TrainLoader(self.tr_dataset, self.cfg.batch_size, seed=run.seed,
+                                     shard=shard)
         self.cv_loader = EvalLoader(self.cv_dataset, self.cfg.batch_size, drop_last=True)
 
     def check_cv_nonempty(self, losses):
@@ -114,8 +144,77 @@ class TrainerBase:
             )
 
     def put_batch(self, *arrays) -> tuple:
-        """Host arrays (or tensors) onto the trainer's device."""
+        """Host arrays (or tensors) of a global batch onto the trainer's
+        device; in a group, this rank's rows of it, zero-padded to a
+        multiple of the ranks (JAX ``put_batch``): the pad rows have
+        ``frame_nums`` 0, so the losses mask them out, while BatchNorm's
+        statistics see them, as JAX's do."""
+        if self.parallel is not None:
+            arrays = [self.parallel.shard_rows(a) for a in arrays]
+        return self.to_device(*arrays)
+
+    def to_device(self, *arrays) -> tuple:
+        """Host arrays (or tensors) that are already this rank's rows (a
+        ``TrainLoader`` batch) onto the trainer's device."""
         return tuple(torch.as_tensor(a).to(self.device) for a in arrays)
+
+    def gather_rows(self, rows: int, *tensors) -> tuple:
+        """Each of ``tensors``, this rank's rows, as the global batch of
+        ``rows`` rows on every rank (the pad rows dropped); as they are on
+        one device."""
+        if self.parallel is None:
+            return tensors
+        return tuple(self.parallel.gather_rows(t, rows) for t in tensors)
+
+    @sharded
+    def serve(self, server, noisy_padded, generator) -> torch.Tensor:
+        """``server.enhance_batch`` of a global batch ``[B, L]``: in a group,
+        on this rank's rows (JAX's ``enhance_batch`` through ``put_batch``),
+        every row returned on every rank."""
+        wav, = self.put_batch(noisy_padded)
+        return self.gather_rows(len(noisy_padded), server.enhance_batch(wav, generator))[0]
+
+    def start(self) -> None:
+        """A subclass's last step of construction, once its nets, optimizers
+        and generator exist: rank 0's nets on every rank, then, under
+        ``--retrain``, the latest checkpoint and the epoch after it."""
+        self.sync_nets()
+        if self.run.retrain:
+            restored = self.ckpt.restore_latest()
+            if restored is not None:
+                self.restore_payload(restored)
+                last = self.ckpt.latest_epoch()
+                self.epoch = 0 if last is None else last + 1
+                logging.info("resumed at epoch %d (step %d)", self.epoch, self.step)
+
+    # ---- the group's collectives ------------------------------------------
+    def sync_nets(self) -> None:
+        """Rank 0's parameters and buffers on every rank (after the nets are
+        built and after a restore)."""
+        if self.parallel is not None:
+            self.parallel.broadcast_modules(self.nets.values())
+
+    def sum_grads(self) -> None:
+        """Every gradient summed over the ranks, before the norms and the
+        optimizer: each rank's loss is its share of the global loss."""
+        if self.parallel is not None:
+            self.parallel.sum_grads(p for m in self.nets.values() for p in m.parameters())
+
+    def plateau_update(self, cv_loss: float) -> tuple:
+        """The plateau's ``(halve, stop, is_best)`` for ``cv_loss``, rank 0's
+        on every rank, so that no rank leaves the epoch loop alone."""
+        decision = self.plateau.update(cv_loss)
+        return decision if self.parallel is None else self.parallel.broadcast_object(decision)
+
+    def save_checkpoints(self, is_best: bool, cv_loss: float) -> None:
+        """The epoch's checkpoint, and the best one if ``is_best``, from rank 0."""
+        if not self.is_main:
+            return
+        payload = self.ckpt_payload()
+        if is_best:
+            logging.info("new best cv loss %.5f; saving best", cv_loss)
+            self.ckpt.save_best(payload)
+        self.ckpt.save_epoch(self.epoch, payload)
 
     # ---- checkpoint payloads ----------------------------------------------
     def ckpt_payload(self) -> dict:
@@ -143,6 +242,7 @@ class TrainerBase:
         self.plateau.prev_loss = float(meta["plateau_prev"])
         self.plateau.best_loss = float(meta["plateau_best"])
         self.plateau.bad_epochs = int(meta["plateau_bad"])
+        self.sync_nets()
 
     def seed_generator(self) -> None:
         """Seed ``self.gen`` from the run's seed (salted as the JAX

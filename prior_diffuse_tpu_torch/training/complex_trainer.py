@@ -21,6 +21,12 @@ Serving (``enhance_batch``, ``generate_wav``) is
 ``serving.enhance.PriorServer``: K1, the prior (in bf16 compute for a
 bf16-compute trainer, as evaluation), decompression, K2 on the estimate
 cast to float32.
+
+With ``parallel`` (``training/base.py``) each rank steps on its rows of the
+global batch (global BatchNorm statistics and loss denominators, the
+gradients summed before the norms and Adam), ``evaluate`` takes the global
+cv loss and scores the gathered estimates on rank 0, and ``generate_wav``
+serves each bucket on the ranks' rows; rank 0 writes.
 """
 
 from __future__ import annotations
@@ -37,9 +43,10 @@ from prior_diffuse_tpu_torch.losses import LOSSES
 from prior_diffuse_tpu_torch.metrics.compare import compare_complex
 from prior_diffuse_tpu_torch.models import complex_prior_class, model_class
 from prior_diffuse_tpu_torch.models.precision import compute_dtype, compute_view
+from prior_diffuse_tpu_torch.parallel.mesh import DataParallel, global_shares
 from prior_diffuse_tpu_torch.serving.enhance import PriorServer
 from prior_diffuse_tpu_torch.training.base import (TrainerBase, grad_groups,
-                                                   group_grad_norms, spec_features)
+                                                   group_grad_norms, sharded, spec_features)
 from prior_diffuse_tpu_torch.training.optim import get_lr, set_lr, torch_adam
 from prior_diffuse_tpu_torch.utils.logging import MetricsLogger
 
@@ -62,9 +69,10 @@ class ComplexTrainer(TrainerBase):
     server_class = PriorServer
 
     def __init__(self, run: RunConfig, exp: ExperimentConfig, device="cuda",
-                 metrics_logger: Optional[MetricsLogger] = None):
+                 metrics_logger: Optional[MetricsLogger] = None,
+                 parallel: Optional[DataParallel] = None):
         self.prior_class(exp.model.name)  # an unknown or a model of another kind raises
-        super().__init__(run, exp, device, metrics_logger)
+        super().__init__(run, exp, device, metrics_logger, parallel)
         self.loss_fn = LOSSES[self.cfg.loss]
         # the server turns TF32 off before any train step (f32 means f32)
         self.compute_dtype = compute_dtype(self.cfg.compute_dtype)
@@ -79,21 +87,16 @@ class ComplexTrainer(TrainerBase):
         self.grad_groups = grad_groups(self.model)
         self.gen = torch.Generator(device=self.device)
         self.seed_generator()
-
-        if run.retrain:
-            restored = self.ckpt.restore_latest()
-            if restored is not None:
-                self.restore_payload(restored)
-                last = self.ckpt.latest_epoch()
-                self.epoch = 0 if last is None else last + 1
-                logging.info("resumed at epoch %d (step %d)", self.epoch, self.step)
+        self.start()
 
     # ---- steps --------------------------------------------------------------
+    @sharded
     def _train_step(self, noisy, clean, frame_nums, norms: bool = True):
         """One train step on device tensors ``noisy, clean [B, L]``,
         ``frame_nums [B]``; returns ``(loss, gnorms)``, the loss a 0-d
         tensor and ``gnorms`` the per-group gradient norms (empty unless
-        ``norms``)."""
+        ``norms``).  In a group the tensors are this rank's rows and the
+        loss and norms the global batch's."""
         feat = spec_features(noisy, self.cfg)
         label = spec_features(clean, self.cfg)
         self.model_train.train()
@@ -101,20 +104,28 @@ class ComplexTrainer(TrainerBase):
             loss = self.loss_fn(self.model_train(feat).float(), label, frame_nums)
             self.opt.zero_grad(set_to_none=True)
             loss.backward()
+        return self._update(loss, norms)
+
+    def _update(self, loss, norms: bool):
+        """After the backward of ``loss``: the gradients summed over the
+        ranks, the group norms (if ``norms``), Adam; ``(loss, gnorms)``."""
+        self.sum_grads()
         gnorms = group_grad_norms(self.grad_groups, "model") if norms else {}
         self.opt.step()
-        return loss.detach(), gnorms
+        return global_shares(loss.detach())[0], gnorms
 
+    @sharded
     @torch.no_grad()
     def _eval_step(self, noisy, clean, frame_nums):
         """The prior in inference mode on one cv batch; returns ``(est,
         label, loss)``: the compressed estimate (in the prior's output dtype,
         bf16 from a bf16-compute GCRN, as JAX's) and label ``[B, T, 161,
-        2]`` and the loss, a 0-d tensor."""
+        2]`` and the loss, a 0-d tensor (in a group: this rank's rows and
+        the global loss)."""
         feat = spec_features(noisy, self.cfg)
         label = spec_features(clean, self.cfg)
         est = self.server.prior(feat)
-        return est, label, self.loss_fn(est, label, frame_nums)
+        return est, label, global_shares(self.loss_fn(est, label, frame_nums))[0]
 
     # ---- epoch loop and serving ---------------------------------------------
     def evaluate(self) -> float:
@@ -124,11 +135,15 @@ class ComplexTrainer(TrainerBase):
                                                   batch.frame_nums)
             est, label, loss = self._eval_step(noisy, clean, frames)
             losses.append(float(loss))
-            results.append(compare_complex(est, label, batch.frame_nums,
-                                           self.cfg.feat_type))
+            # scoring casts to float32 anyway; gathered in it
+            est, label = self.gather_rows(len(batch.frame_nums), est.float(), label)
+            if self.is_main:  # scoring (K2 and the metrics) on rank 0
+                results.append(compare_complex(est, label, batch.frame_nums,
+                                               self.cfg.feat_type))
         self.check_cv_nonempty(losses)
         cv_loss = float(np.mean(losses))
-        self.log_eval("test", cv_loss, np.mean(np.asarray(results), axis=0))
+        if self.is_main:
+            self.log_eval("test", cv_loss, np.mean(np.asarray(results), axis=0))
         return cv_loss
 
     def _halve_lrs(self):
@@ -146,7 +161,7 @@ class ComplexTrainer(TrainerBase):
             for batch in self.tr_loader:
                 if max_steps is not None and self.step >= max_steps:
                     return
-                noisy, clean, frames = self.put_batch(batch.noisy, batch.clean,
+                noisy, clean, frames = self.to_device(batch.noisy, batch.clean,
                                                       batch.frame_nums)
                 t0 = time.perf_counter()
                 loss, gnorms = self._train_step(
@@ -160,13 +175,10 @@ class ComplexTrainer(TrainerBase):
                 self.metrics.log(rec, step=self.step)
                 self.step += 1
             cv_loss = self.evaluate()
-            halve, stop, is_best = self.plateau.update(cv_loss)
+            halve, stop, is_best = self.plateau_update(cv_loss)
             if halve:
                 self._halve_lrs()
-            payload = self.ckpt_payload()
-            if is_best:
-                self.ckpt.save_best(payload)
-            self.ckpt.save_epoch(self.epoch, payload)
+            self.save_checkpoints(is_best, cv_loss)
             self.epoch += 1
             if stop:
                 logging.info("No improvement and apply early stop")
@@ -183,8 +195,9 @@ class ComplexTrainer(TrainerBase):
 
     def enhance_batch(self, noisy_padded, generator: Optional[torch.Generator] = None):
         """Enhance an RMS-normalised padded batch ``[B, L] -> [B, L]``: K1,
-        the prior, decompression, K2.  Draws nothing."""
-        return self.server.enhance_batch(noisy_padded, generator)
+        the prior, decompression, K2.  Draws nothing.  In a group on this
+        rank's rows, every row returned (:meth:`serve`)."""
+        return self.serve(self.server, noisy_padded, generator)
 
     def generate_wav(self, load_pre_train: bool = True,
                      data_path: Optional[str] = None,
@@ -201,8 +214,8 @@ class ComplexTrainer(TrainerBase):
             self.load_best()
         data_path = data_path or f"{self.run.data_root}/noisy_testset_wav"
         out_dir = out_dir or self.run.generated_wav_dir
-        rtf = enhance_directory(self.server, data_path, out_dir, self.gen)
-        if compare_after:
+        rtf = enhance_directory(self, data_path, out_dir, self.gen)
+        if compare_after and self.is_main:  # rank 0 wrote the wavs
             clean_dir = f"{self.run.data_root}/clean_testset_wav"
             res = np.mean(np.asarray(compare(clean_dir, out_dir)), axis=0)
             logging.info("ref=%s", clean_dir)

@@ -41,7 +41,14 @@ modules, the chain in float32, K1 and K2, no K3.
 
 As in JAX, ``run.draw`` replaces training with :meth:`draw_audio` (one cv
 batch scored and plotted) and ``run.profile_steps`` traces the first
-steps (``utils/profiler.py::trace``).
+steps (``utils/profiler.py::trace``, on rank 0).
+
+With ``parallel`` (``training/base.py``) each rank steps on its rows of the
+global batch: global BatchNorm statistics, loss denominators and q-sample
+draws, the gradients summed before the norms and Adam, the losses reported
+summed; ``evaluate`` takes the global cv loss and diagnostics and scores
+the gathered estimates on rank 0 (K2 runs there); ``--generate`` serves
+each bucket on the ranks' rows and rank 0 writes the wavs.
 """
 
 from __future__ import annotations
@@ -67,9 +74,10 @@ from prior_diffuse_tpu_torch.models import complex_prior_class
 from prior_diffuse_tpu_torch.models.diffunet import DiffUNet, DiffUNet1, Nocon
 from prior_diffuse_tpu_torch.models.fused_forward import dual_train_forward
 from prior_diffuse_tpu_torch.models.precision import compute_dtype, compute_view
+from prior_diffuse_tpu_torch.parallel.mesh import DataParallel, global_shares, global_sum
 from prior_diffuse_tpu_torch.serving.enhancer import ComputeEnhancer, Enhancer
 from prior_diffuse_tpu_torch.training.base import (TrainerBase, grad_groups,
-                                                   group_grad_norms, spec_features)
+                                                   group_grad_norms, sharded, spec_features)
 from prior_diffuse_tpu_torch.training.optim import get_lr, set_lr, torch_adam
 from prior_diffuse_tpu_torch.utils.logging import MetricsLogger
 from prior_diffuse_tpu_torch.utils.profiler import trace
@@ -97,7 +105,8 @@ class ComplexDDPMTrainer(TrainerBase):
     grad_log_every = 50
 
     def __init__(self, run: RunConfig, exp: ExperimentConfig, device="cuda",
-                 metrics_logger: Optional[MetricsLogger] = None):
+                 metrics_logger: Optional[MetricsLogger] = None,
+                 parallel: Optional[DataParallel] = None):
         diff = exp.diffusion
         mode = diffusion_mode(diff)
         complex_prior_class(exp.model.name)  # an unknown or a non-complex model raises
@@ -106,7 +115,7 @@ class ComplexDDPMTrainer(TrainerBase):
             raise ValueError("x0_leak_drop requires predict='x0'")
         if not 0.0 <= self.x0_leak_drop <= 1.0:
             raise ValueError("x0_leak_drop must be in [0, 1]")
-        super().__init__(run, exp, device, metrics_logger)
+        super().__init__(run, exp, device, metrics_logger, parallel)
         self.mode = mode
         self.predict = diff.predict
         self.cond_noisy = bool(diff.cond_noisy)
@@ -149,23 +158,19 @@ class ComplexDDPMTrainer(TrainerBase):
         self.grad_groups = {n: grad_groups(m) for n, m in self.nets.items()}
         self.gen = torch.Generator(device=dev)
         self.seed_generator()
-
-        if run.retrain:
-            restored = self.ckpt.restore_latest()
-            if restored is not None:
-                self.restore_payload(restored)
-                last = self.ckpt.latest_epoch()
-                self.epoch = 0 if last is None else last + 1
-                logging.info("resumed at epoch %d (step %d)", self.epoch, self.step)
+        self.start()
 
     # ---- steps --------------------------------------------------------------
+    @sharded
     def _train_step(self, noisy, clean, frame_nums, draws: Optional[Draws] = None,
                     norms: bool = True):
         """One train step on device tensors ``noisy, clean [B, L]``,
         ``frame_nums [B]``; returns ``(total, loss_dis, loss_ddpm, gnorms)``
         as 0-d tensors, ``gnorms`` the per-group gradient norms (empty
         unless ``norms``).  The q-sample draws come from ``self.gen`` unless
-        ``draws`` gives them."""
+        ``draws`` gives them (in a group, this rank's rows of them).  In a
+        group the tensors are this rank's rows and the losses and norms
+        returned are the global batch's."""
         cfg, joint, sigma = self.cfg, self.run.joint, self.run.sigma
         feat = spec_features(noisy, cfg)
         label = spec_features(clean, cfg)
@@ -202,6 +207,7 @@ class ComplexDDPMTrainer(TrainerBase):
             self.opt_dis.zero_grad(set_to_none=True)
             self.opt_ddpm.zero_grad(set_to_none=True)
             total.backward()
+        self.sum_grads()
         gnorms = {}
         if norms:
             for n, groups in self.grad_groups.items():
@@ -209,7 +215,7 @@ class ComplexDDPMTrainer(TrainerBase):
         self.opt_ddpm.step()
         if joint:
             self.opt_dis.step()
-        return total.detach(), loss_dis.detach(), loss_ddpm.detach(), gnorms
+        return (*global_shares(total.detach(), loss_dis.detach(), loss_ddpm.detach()), gnorms)
 
     def _dis_forward(self, feat):
         """The prior's train-mode forward (JAX ``_dis_apply``, train)."""
@@ -224,13 +230,16 @@ class ComplexDDPMTrainer(TrainerBase):
             return dual_train_forward(self.ddpm_train, x_t, cond, t, dtype=self.compute_dtype)
         return self.ddpm_train(x_t, t) if cond is None else self.ddpm_train(x_t, cond, t)
 
+    @sharded
     @torch.no_grad()
     def _eval_step(self, noisy, clean, frame_nums, x_T: Optional[torch.Tensor] = None):
         """The prior and the reverse chain in inference mode on one cv batch;
         returns ``(audio, label, loss, diag)``: the compressed estimate and
         label ``[B, T, 161, 2]``, the chain's masked MSE and the residual
         diagnostics (``prior_mse``, ``res_energy_true``,
-        ``res_energy_sampled``, ``res_cos``), all 0-d tensors."""
+        ``res_energy_sampled``, ``res_cos``), all 0-d tensors.  In a group
+        the estimate and label are this rank's rows (``x_T`` too, if given)
+        and the loss and diagnostics the global batch's."""
         feat = spec_features(noisy, self.cfg)
         label = spec_features(clean, self.cfg)
         audio, x_init = self.enhancer.eval_chain(feat, self.gen, x_T)
@@ -240,13 +249,17 @@ class ComplexDDPMTrainer(TrainerBase):
         r_true = label / self.c - x_init
         r_samp = audio / self.c - x_init
         m = frame_mask(frame_nums, r_true.shape[1])[:, :, None, None]
-        n_valid = torch.sum(m) * r_true.shape[2] * r_true.shape[3]
+        n_valid = global_sum(torch.sum(m)) * r_true.shape[2] * r_true.shape[3]
         e_true = torch.sum((r_true * m) ** 2) / n_valid
         e_samp = torch.sum((r_samp * m) ** 2) / n_valid
-        cos = torch.sum(r_samp * r_true * m) / torch.sqrt(
-            torch.sum((r_samp * m) ** 2) * torch.sum((r_true * m) ** 2) + 1e-20)
+        dot, s_samp, s_true = global_sum(torch.stack([
+            torch.sum(r_samp * r_true * m), torch.sum((r_samp * m) ** 2),
+            torch.sum((r_true * m) ** 2)]))
+        cos = dot / torch.sqrt(s_samp * s_true + 1e-20)
+        loss, prior_mse, e_true, e_samp = global_shares(
+            loss, com_mse_loss(x_init * self.c, label, frame_nums), e_true, e_samp)
         diag = {
-            "prior_mse": com_mse_loss(x_init * self.c, label, frame_nums),
+            "prior_mse": prior_mse,
             "res_energy_true": e_true,
             "res_energy_sampled": e_samp,
             "res_cos": cos,
@@ -262,8 +275,10 @@ class ComplexDDPMTrainer(TrainerBase):
             audio, label, loss, diag = self._eval_step(noisy, clean, frames)
             losses.append(float(loss))
             diags.append({k: float(v) for k, v in diag.items()})
-            results.append(compare_complex(audio, label, batch.frame_nums,
-                                           self.cfg.feat_type))
+            audio, label = self.gather_rows(len(batch.frame_nums), audio, label)
+            if self.is_main:  # scoring (K2 and the metrics) on rank 0
+                results.append(compare_complex(audio, label, batch.frame_nums,
+                                               self.cfg.feat_type))
         self.check_cv_nonempty(losses)
         cv_loss = float(np.mean(losses))
         diag_mean = {f"test_{k}": float(np.mean([d[k] for d in diags]))
@@ -277,7 +292,8 @@ class ComplexDDPMTrainer(TrainerBase):
             diag_mean["test_res_energy_true"],
             diag_mean["test_res_energy_sampled"], diag_mean["test_res_cos"],
         )
-        self.log_eval("test", cv_loss, np.mean(np.asarray(results), axis=0))
+        if self.is_main:
+            self.log_eval("test", cv_loss, np.mean(np.asarray(results), axis=0))
         return cv_loss
 
     def _halve_lrs(self):
@@ -297,7 +313,7 @@ class ComplexDDPMTrainer(TrainerBase):
             self.draw_audio()
             return
         profiling = contextlib.ExitStack()  # closed after step profile_steps
-        if self.run.profile_steps and self.step < self.run.profile_steps:
+        if self.is_main and self.run.profile_steps and self.step < self.run.profile_steps:
             profiling.enter_context(trace(os.path.join(self.run.log_dir, "trace"),
                                           self.device))
         with profiling:
@@ -311,7 +327,7 @@ class ComplexDDPMTrainer(TrainerBase):
                 for batch in self.tr_loader:
                     if max_steps is not None and self.step >= max_steps:
                         return
-                    noisy, clean, frames = self.put_batch(
+                    noisy, clean, frames = self.to_device(
                         batch.noisy, batch.clean, batch.frame_nums)
                     t0 = time.perf_counter()
                     log_norms = self.step % self.grad_log_every == 0
@@ -331,14 +347,10 @@ class ComplexDDPMTrainer(TrainerBase):
             cv_loss = self.evaluate()
             if self.run.eval:
                 return
-            halve, stop, is_best = self.plateau.update(cv_loss)
+            halve, stop, is_best = self.plateau_update(cv_loss)
             if halve:
                 self._halve_lrs()
-            payload = self.ckpt_payload()
-            if is_best:
-                logging.info("new best cv loss %.5f; saving best", cv_loss)
-                self.ckpt.save_best(payload)
-            self.ckpt.save_epoch(self.epoch, payload)
+            self.save_checkpoints(is_best, cv_loss)
             self.epoch += 1
             if stop:
                 logging.info("No improvement and apply early stop")
@@ -370,6 +382,9 @@ class ComplexDDPMTrainer(TrainerBase):
                                                   batch.frame_nums)
             audio, label, loss, _ = self._eval_step(noisy, clean, frames)
             losses.append(float(loss))
+            audio, label = self.gather_rows(len(batch.frame_nums), audio, label)
+            if not self.is_main:  # rank 0 scores and draws
+                continue
             esti_wavs = spec_batch_to_wavs(audio, batch.frame_nums, self.cfg.feat_type)
             label_wavs = spec_batch_to_wavs(label, batch.frame_nums, self.cfg.feat_type)
             results.append(compare_wavs(label_wavs, esti_wavs))
@@ -378,14 +393,16 @@ class ComplexDDPMTrainer(TrainerBase):
                 draw_comparison(
                     [batch.noisy[i, :n], l, e], ["noisy", "clean", "enhanced"],
                     path=os.path.join(out_dir, f"draw_b{bi}_{i}.png"), device=self.device)
-        self.log_eval("draw", float(np.mean(losses)), np.mean(np.asarray(results), axis=0))
+        if self.is_main:
+            self.log_eval("draw", float(np.mean(losses)), np.mean(np.asarray(results), axis=0))
         return out_dir
 
     def enhance_batch(self, noisy_padded, generator: Optional[torch.Generator] = None):
         """Enhance an RMS-normalised padded batch ``[B, L] -> [B, L]``
         through the serving path (the bf16-compute one for a bf16-compute
-        trainer), drawing from ``generator`` (default: the trainer's own)."""
-        return self.enhancer.enhance_batch(noisy_padded, generator or self.gen)
+        trainer), drawing from ``generator`` (default: the trainer's own); in
+        a group on this rank's rows, every row returned (:meth:`serve`)."""
+        return self.serve(self.enhancer, noisy_padded, generator or self.gen)
 
     def load_best(self) -> bool:
         restored = self.ckpt.restore_best()
@@ -407,8 +424,8 @@ class ComplexDDPMTrainer(TrainerBase):
             self.load_best()
         data_path = data_path or f"{self.run.data_root}/noisy_testset_wav"
         out_dir = out_dir or self.run.generated_wav_dir
-        rtf = enhance_directory(self.enhancer, data_path, out_dir, self.gen)
-        if compare_after:
+        rtf = enhance_directory(self, data_path, out_dir, self.gen)
+        if compare_after and self.is_main:  # rank 0 wrote the wavs
             clean_dir = f"{self.run.data_root}/clean_testset_wav"
             res = np.mean(np.asarray(compare(clean_dir, out_dir)), axis=0)
             logging.info("ref=%s", clean_dir)

@@ -30,9 +30,10 @@ import torch
 from prior_diffuse_tpu_torch.config import ExperimentConfig, RunConfig
 from prior_diffuse_tpu_torch.data.dataset import EvalLoader
 from prior_diffuse_tpu_torch.models import magnitude_prior_class
+from prior_diffuse_tpu_torch.parallel.mesh import DataParallel, global_shares
 from prior_diffuse_tpu_torch.serving.enhance import MagServer
 from prior_diffuse_tpu_torch.signal.compress import from_mag_phase
-from prior_diffuse_tpu_torch.training.base import group_grad_norms, mag_features
+from prior_diffuse_tpu_torch.training.base import mag_features, sharded
 from prior_diffuse_tpu_torch.training.complex_trainer import ComplexTrainer
 from prior_diffuse_tpu_torch.utils.logging import MetricsLogger
 
@@ -42,11 +43,13 @@ class MagTrainer(ComplexTrainer):
     server_class = MagServer
 
     def __init__(self, run: RunConfig, exp: ExperimentConfig, device="cuda",
-                 metrics_logger: Optional[MetricsLogger] = None):
-        super().__init__(run, exp, device, metrics_logger)
+                 metrics_logger: Optional[MetricsLogger] = None,
+                 parallel: Optional[DataParallel] = None):
+        super().__init__(run, exp, device, metrics_logger, parallel)
         # the reference's MagTrainer scores every cv utterance
         self.cv_loader = EvalLoader(self.cv_dataset, self.cfg.batch_size, drop_last=False)
 
+    @sharded
     def _train_step(self, noisy, clean, frame_nums, norms: bool = True):
         """One train step on device tensors ``noisy, clean [B, L]``,
         ``frame_nums [B]``: K1 and compression of both batches, the
@@ -60,10 +63,9 @@ class MagTrainer(ComplexTrainer):
             loss = self.loss_fn(self.model_train(feat).float(), label, frame_nums)
             self.opt.zero_grad(set_to_none=True)
             loss.backward()
-        gnorms = group_grad_norms(self.grad_groups, "model") if norms else {}
-        self.opt.step()
-        return loss.detach(), gnorms
+        return self._update(loss, norms)
 
+    @sharded
     @torch.no_grad()
     def _eval_step(self, noisy, clean, frame_nums):
         """The prior in inference mode on one cv batch; returns ``(est,
@@ -73,5 +75,5 @@ class MagTrainer(ComplexTrainer):
         feat, noisy_phase = mag_features(noisy, self.cfg)
         label, clean_phase = mag_features(clean, self.cfg)
         est = self.server.prior(feat).float()
-        loss = self.loss_fn(est, label, frame_nums)
+        loss = global_shares(self.loss_fn(est, label, frame_nums))[0]
         return from_mag_phase(est, noisy_phase), from_mag_phase(label, clean_phase), loss

@@ -4,7 +4,8 @@ The counterpart of ``prior_diffuse_tpu/utils/logging.py``: Python logging
 configured like the reference's ``main.py:53-67`` (stream + file, one
 format), an append-only JSONL metrics sink, and the optional wandb mirror
 (``--wandb``), which activates only when wandb is installed *and*
-explicitly requested.
+explicitly requested.  In a process group rank 0 alone writes the log file
+and the metrics and runs wandb; the other ranks log to their stream.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import logging
 import os
 import time
 from typing import Dict, Optional
+
+from prior_diffuse_tpu_torch.parallel.distributed import is_main
 
 
 def setup_logging(log_dir: Optional[str] = None, level: str = "info") -> None:
@@ -25,7 +28,7 @@ def setup_logging(log_dir: Optional[str] = None, level: str = "info") -> None:
         h = logging.StreamHandler()
         h.setFormatter(fmt)
         root.addHandler(h)
-    if log_dir:
+    if log_dir and is_main():
         os.makedirs(log_dir, exist_ok=True)
         h = logging.FileHandler(os.path.join(log_dir, "stdout.txt"))
         h.setFormatter(fmt)
@@ -33,15 +36,18 @@ def setup_logging(log_dir: Optional[str] = None, level: str = "info") -> None:
 
 
 class MetricsLogger:
-    """Append-only JSONL metrics (one object per log call)."""
+    """Append-only JSONL metrics (one object per log call); a no-op off
+    rank 0 of a process group."""
 
     def __init__(self, log_dir: Optional[str] = None, use_wandb: bool = False,
                  project: str = "prior-diffuse-tpu"):
         self._file = None
+        self._wandb = None
+        if not is_main():
+            return
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
             self._file = open(os.path.join(log_dir, "metrics.jsonl"), "a")
-        self._wandb = None
         if use_wandb:
             try:
                 import wandb

@@ -2,9 +2,9 @@
 
 * Every module of ``prior_diffuse_tpu_torch`` imports with jax, flax, optax,
   orbax, yaml and the JAX package blocked, the training, bf16 serving,
-  diffusion-mode, prior, GRN, bf16-training and tooling slices' included
-  (the tooling imports matplotlib and wandb only when it draws or
-  mirrors), and ``conf/diff.yml``,
+  diffusion-mode, prior, GRN, bf16-training, tooling and data-parallel
+  slices' included (the tooling imports matplotlib and wandb only when it
+  draws or mirrors), and ``conf/diff.yml``,
   ``conf/gcrn.yml``, ``conf/dbaiat.yml`` and ``conf/grn.yml`` load so: the machine with the GPU has none of
   them, and this test process imports jax (``conftest.py``), so an
   accidental import would pass every other test here.
@@ -87,6 +87,12 @@ BF16_TRAIN_SLICE = ["models.precision", "models.layers", "models.fused_forward",
 TOOLING_SLICE = ["runtime", "runtime.native", "data.dataset", "utils.profiler", "viz",
                  "utils.logging", "metrics.compare", "training.ddpm_trainer", "cli"]
 
+# the modules of data parallelism (parallel/ and what takes a group)
+PARALLEL_SLICE = ["parallel", "parallel.distributed", "parallel.mesh", "models.layers",
+                  "losses", "data.dataset", "diffusion.qsample", "serving.enhancer",
+                  "serving.enhance", "training.base", "training.ddpm_trainer",
+                  "training.complex_trainer", "training.mag_trainer", "utils.logging", "cli"]
+
 
 def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
@@ -96,7 +102,7 @@ def test_port_imports_without_jax():
     walked = set(proc.stdout.split())
     assert len(walked) >= 50  # every module was walked
     missing = [m for m in (TRAINING_SLICE + BF16_SERVING_SLICE + MODES_SLICE + PRIORS_SLICE
-                           + GRN_SLICE + BF16_TRAIN_SLICE + TOOLING_SLICE)
+                           + GRN_SLICE + BF16_TRAIN_SLICE + TOOLING_SLICE + PARALLEL_SLICE)
                if f"prior_diffuse_tpu_torch.{m}" not in walked]
     assert not missing, missing
 
