@@ -149,7 +149,15 @@ Phases (each passes or ends the script with a non-zero exit):
    each rank, K2 = 2 on rank 0 alone); then ``python -m
    torch.distributed.run --standalone --nproc_per_node=1 -m
    prior_diffuse_tpu_torch.cli`` on NCCL for one epoch (rank 0's log,
-   metrics and checkpoints) and ``--generate``.
+   metrics and checkpoints) and ``--generate``;
+13. the static roofline (``utils/roofline.py``): the f32 and bf16 serving
+   batch, the f32 and bf16 train step and the GCRN and DB-AIAT batches alone,
+   each counted on the card (model and padded FLOPs, product bytes and the
+   elementwise bracket, fused and unfused ceilings) with its kernels routed
+   through their plain versions, equal in model FLOPs to the count under the
+   plain versions; each timed (CUDA events and device ms) and its
+   ``attained_fraction`` and ``mfu`` of both times printed, each at most
+   1.05; an unknown card fails.
 
 It prints a JSON line of per-kernel results before the last line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -383,16 +391,21 @@ def fmt(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
-# Published H100 SXM peaks (dense): f32 outside the tensor cores, TF32 and
-# bf16 on them, and the HBM3 rate.
-PEAK_F32, PEAK_TF32, PEAK_BF16, PEAK_BYTES = 67e12, 495e12, 989e12, 3.35e12
+def sxm() -> dict:
+    """The published dense peaks of an H100 SXM (f32 outside the tensor
+    cores, TF32 and bf16 on them) and its HBM3 rate: the entry of
+    ``utils/roofline.py::CHIP_SPECS`` that every kernel's bound is taken
+    against, whatever card runs."""
+    from prior_diffuse_tpu_torch.utils.roofline import CHIP_SPECS
+
+    return CHIP_SPECS["H100 80GB HBM3"]
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_F32) -> dict:
+def bound(flops: float, nbytes: float, peak: str = "peak_f32") -> dict:
     """Least time of the work on the card: the larger of the bytes over the
-    memory rate and the operations over ``peak`` (default the f32
-    non-tensor rate)."""
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    memory rate and the operations over the ``peak`` of :func:`sxm`
+    (default the f32 non-tensor rate)."""
+    t_ops, t_bytes = flops / sxm()[peak], nbytes / sxm()["hbm_bytes_per_s"]
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
@@ -717,8 +730,8 @@ def check_encoder(name, packed, x, temb):
     import torch
 
     bf16 = packed[0][0]["wmain"].dtype == torch.bfloat16
-    label, rtol, peak = ("K3-bf16", KERNEL_BF16_RTOL, PEAK_BF16) if bf16 else (
-        "K3", KERNEL_RTOL, PEAK_F32)
+    label, rtol, peak = ("K3-bf16", KERNEL_BF16_RTOL, "peak_bf16") if bf16 else (
+        "K3", KERNEL_RTOL, "peak_f32")
     worst, ms_sum, plain_sum, dev_sum, graph_sum, flops, nbytes = (0.0,) * 7
     stages = {"stage_device_ms": [], "stage_graph_ms": [], "stage_bound_ms": []}
     x0 = x
@@ -767,7 +780,7 @@ def check_encoder(name, packed, x, temb):
               + f"; the encoder with its glue: device {fmt(row['encoder_device_ms'])} ms, "
               f"graph {row['encoder_graph_ms']:.4f} ms, {launches} launches", flush=True)
     else:  # the 3xTF32 split does three TF32 products for each f32 one
-        row["bound_3xtf32_ms"] = 3 * flops / PEAK_TF32 * 1e3
+        row["bound_3xtf32_ms"] = 3 * flops / sxm()["peak_tf32"] * 1e3
     return worst, row
 
 
@@ -1073,6 +1086,17 @@ def expect_counts(what: str, want: dict) -> dict:
 def metric_records(log_dir: str) -> list:
     with open(os.path.join(log_dir, "metrics.jsonl")) as f:
         return [json.loads(line) for line in f]
+
+
+def logged_step_ms(steps: list, what: str) -> list:
+    """The ``step_time_ms`` of a run's train records, as the JAX trainers
+    log it: from one step's readback to the next (the loop's ``StepTimer``:
+    the loader's wait and the logging included), none on the run's first
+    step."""
+    if not steps or "step_time_ms" in steps[0] or "utt_per_sec" in steps[0] or not all(
+            "step_time_ms" in r and "utt_per_sec" in r for r in steps[1:]):
+        fail(f"{what}: step_time_ms is not logged from one step to the next")
+    return [r["step_time_ms"] for r in steps[1:]]
 
 
 def finite(values) -> bool:
@@ -1396,11 +1420,11 @@ def cli_phase(root: str, corpus: str, card) -> tuple:
     for path in ("epochs/0.pt", "epochs/1.pt", "best.pt"):
         if not os.path.exists(os.path.join(ckpt, path)):
             fail(f"cli: no checkpoint {path}")
-    step_ms = [r["step_time_ms"] for r in steps]
-    print(f"cli.main: {n_steps} steps and 2 evaluations in {wall:.1f} s wall; step "
+    step_ms = logged_step_ms(steps, "cli log")
+    print(f"cli.main: {n_steps} steps and 2 evaluations in {wall:.1f} s wall; step to step "
           f"{np.median(step_ms):.3f} ms median on the host clock ({min(step_ms):.3f}-"
-          f"{max(step_ms):.3f}); cv loss {[round(r['test_loss'], 5) for r in evals]}; "
-          f"card {card}", flush=True)
+          f"{max(step_ms):.3f}; the evaluation between the epochs included); cv loss "
+          f"{[round(r['test_loss'], 5) for r in evals]}; card {card}", flush=True)
 
     reset_counts()
     cli.main(args + ["--generate"])
@@ -1796,8 +1820,8 @@ def complex_cli_phase(root, corpus, name, card, n_test: int = CORPUS[1]) -> dict
         if not os.path.exists(os.path.join(assets, "checkpoint", name, ckpt)):
             fail(f"cli [{name}]: no checkpoint {ckpt}")
     print(f"cli.main [{name}]: {n_steps} steps and an evaluation in {wall:.1f} s wall; step "
-          f"{np.median([r['step_time_ms'] for r in steps]):.3f} ms median on the host clock; "
-          f"card {card}", flush=True)
+          f"to step {np.median(logged_step_ms(steps, f'cli log [{name}]')):.3f} ms median on "
+          f"the host clock; card {card}", flush=True)
     reset_counts()
     cli.main(args + ["--generate"])
     torch.cuda.synchronize()
@@ -2195,8 +2219,8 @@ def bf16_ddpm_phase(device, card, root: str, corpus: str) -> dict:
     if len(steps) != n_steps or not finite(r["loss_sum"] for r in steps):
         fail(f"bf16 cli log: {len(steps)} train records")
     print(f"cli.main (bf16 yml): {n_steps} steps and an evaluation in {wall:.1f} s wall; "
-          f"step {np.median([r['step_time_ms'] for r in steps]):.3f} ms median on the host "
-          f"clock; card {card}", flush=True)
+          f"step to step {np.median(logged_step_ms(steps, 'bf16 cli log')):.3f} ms median on "
+          f"the host clock; card {card}", flush=True)
     reset_counts()
     cli.main(args + ["--generate"])
     torch.cuda.synchronize()
@@ -2844,8 +2868,9 @@ def dp_nccl_cli_phase(root: str, corpus: str, card, nproc: int = 1, conf: str = 
     print(f"python -m torch.distributed.run --standalone --nproc_per_node={nproc} -m "
           f"prior_diffuse_tpu_torch.cli (NCCL {torch.cuda.nccl.version()}): one epoch of "
           f"{n_steps} steps and an evaluation in {walls[0]:.1f} s wall (cv loss "
-          f"{evals[0]['test_loss']:.5f}, step {np.median([r['step_time_ms'] for r in steps]):.3f} "
-          f"ms median on the host clock), rank 0's log, metrics and checkpoints written; "
+          f"{evals[0]['test_loss']:.5f}, step to step "
+          f"{np.median(logged_step_ms(steps, 'NCCL cli log')):.3f} ms median on the host "
+          f"clock), rank 0's log, metrics and checkpoints written; "
           f"--generate: {len(outs)} wavs at the inputs' lengths in {walls[1]:.1f} s wall; "
           f"card {card}", flush=True)
 
@@ -2856,6 +2881,95 @@ def dp_phase(device, card, root: str, corpus: str) -> dict:
     paths = dp_ranks_phase(device, card, root, corpus)
     dp_nccl_cli_phase(root, corpus, card)
     return paths
+
+
+# Phase 13: a share above 1 would mean the program ran faster than the
+# least time the card could take for its work; 5 % is left for the
+# rounding of the counts and of the times.
+SHARE_MAX = 1.05
+
+
+def roofline_paths(device, nets, priors, root: str, corpus: str) -> dict:
+    """Phase 13's programs, as a user calls them, by name: the serving batch
+    of phase 3 (``Enhancer.enhance_batch``, 8 x 3 s, fast-6) in f32 and
+    bf16; ``conf/diff.yml``'s ``--joint --sigma`` train step (6 x 48000,
+    group norms off, as on 49 of 50 loop steps) in f32 and in bf16 compute,
+    each on a fresh trainer; and the GCRN and ``aia_complex_trans_ri``
+    priors alone (``ComplexTrainer``'s ``PriorServer``) on the batch of
+    phase 3.  Also ``tools/roofline_enhance.py``'s."""
+    import torch
+
+    from prior_diffuse_tpu_torch.config import RunConfig, load_experiment
+    from prior_diffuse_tpu_torch.serving.enhance import PriorServer
+    from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
+    from prior_diffuse_tpu_torch.training.ddpm_trainer import ComplexDDPMTrainer
+
+    wav = torch.from_numpy(speechlike(BATCH, LENGTH, 3)).to(device)
+    gen = torch.Generator(device=device)
+    paths = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        enh = Enhancer(*nets, device=device, dtype=dtype)
+        enh.packs()  # packing is not a batch's work
+        paths[f"serve_{str(dtype)[6:]}"] = (
+            lambda enh=enh: enh.enhance_batch(wav, gen.manual_seed(5)))
+    exp = load_experiment(os.path.join(ROOT, "conf", "diff.yml"))
+    for tag, e in (("float32", exp), ("bfloat16", bf16_exp(exp))):
+        run = RunConfig(seed=7, joint=True, sigma=True, data_root=corpus,
+                        assets=os.path.join(root, f"assets_roofline_{tag}"))
+        tr = ComplexDDPMTrainer(run, e, device=device)
+        batch = [tr.put_batch(b.noisy, b.clean, b.frame_nums) for b in tr.tr_loader][0]
+        paths[f"train_step_{tag}"] = (
+            lambda tr=tr, batch=batch: tr._train_step(*batch, norms=False))
+    for name in BF16_PRIORS:
+        server = PriorServer(priors[name], prior_exp(name), device=device)
+        paths[f"prior_{name}"] = lambda server=server: server.enhance_batch(wav)
+    return paths
+
+
+def roofline_phase(device, card, nets, priors, root: str, corpus: str) -> None:
+    """Phase 13: each program of :func:`roofline_paths` counted by
+    ``utils/roofline.py`` on the card (its kernels routed through their
+    plain versions by ``analyze``), and counted again under
+    :func:`plain_versions` (the same model FLOPs, or the routing failed);
+    its ms (CUDA events, mean of 5 after 2) and device ms (profiler);
+    its ceilings and the shares ``attained_fraction`` and ``mfu`` of both
+    times, each at most ``SHARE_MAX``, against the card's own entry of
+    ``CHIP_SPECS`` (an unknown card fails)."""
+    import torch
+
+    from prior_diffuse_tpu_torch.utils.roofline import analyze, chip_spec
+
+    spec = chip_spec(device)
+    if spec is None:
+        fail(f"no roofline entry for {torch.cuda.get_device_name(device)}")
+    for name, fn in roofline_paths(device, nets, priors, root, corpus).items():
+        rep = analyze(fn)
+        with plain_versions():
+            plain = analyze(fn)
+        torch.cuda.synchronize()
+        t = rep.totals(spec)
+        if plain.totals(spec)["model_flops"] != t["model_flops"] or not t["model_flops"]:
+            fail(f"roofline [{name}]: {t['model_flops']:.0f} model FLOPs through the kernels' "
+                 f"entry points, {plain.totals(spec)['model_flops']:.0f} through the plain "
+                 "versions")
+        ms = cuda_ms(fn, iters=5, warmup=2)
+        dev = device_ms(fn, calls=2)
+        shares = {clock: rep.totals(spec, v / 1e3) for clock, v in (("event", ms), ("device", dev))
+                  if v is not None}
+        print(f"roofline [{name}]: {t['model_flops'] / 1e9:.3f} model GFLOP, "
+              f"{t['padded_flops'] / 1e9:.3f} padded (occupancy {t['lane_occupancy']:.4f}); "
+              f"product bytes {t['mxu_bytes'] / 1e9:.4f} GB, elementwise bracket "
+              f"{t['elementwise_bytes'] / 1e9:.4f} GB; ceiling {t['attainable_s_fused'] * 1e3:.4f} "
+              f"ms fused ({t['bound_by']}-bound) - {t['attainable_s_unfused'] * 1e3:.4f} ms "
+              f"unfused; f32 products on CUDA cores "
+              f"{t['attainable_s_fused_f32_cuda_cores'] * 1e3:.4f} ms; {ms:.4f} event ms, "
+              f"{fmt(dev)} device ms; " + "; ".join(
+                  f"{clock}: attained_fraction {v['attained_fraction']:.5f}, mfu {v['mfu']:.5f}"
+                  for clock, v in shares.items()) + f"; card {card}", flush=True)
+        for clock, v in shares.items():
+            if max(v["attained_fraction"], v["mfu"]) > SHARE_MAX:
+                fail(f"roofline [{name}]: a share of {clock} ms above {SHARE_MAX}: "
+                     f"attained_fraction {v['attained_fraction']:.4f}, mfu {v['mfu']:.4f}")
 
 
 def main() -> None:
@@ -2937,7 +3051,9 @@ def main() -> None:
         paths.update(tooling_phase(device, card, root, corpus, step_launches))
         mark(12)
         paths.update(dp_phase(device, card, root, corpus))
-        mark("12 done")
+        mark(13)
+        roofline_phase(device, card, nets, priors, root, corpus)
+        mark("13 done")
 
     # (route, source, replaces, the path whose run "launches" counts)
     meta = {

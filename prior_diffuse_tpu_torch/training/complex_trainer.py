@@ -32,7 +32,6 @@ serves each bucket on the ranks' rows; rank 0 writes.
 from __future__ import annotations
 
 import logging
-import time
 from typing import Optional
 
 import numpy as np
@@ -49,6 +48,7 @@ from prior_diffuse_tpu_torch.training.base import (TrainerBase, grad_groups,
                                                    group_grad_norms, sharded, spec_features)
 from prior_diffuse_tpu_torch.training.optim import get_lr, set_lr, torch_adam
 from prior_diffuse_tpu_torch.utils.logging import MetricsLogger
+from prior_diffuse_tpu_torch.utils.profiler import StepTimer
 
 
 def seeded_model(seed: int, name: str) -> torch.nn.Module:
@@ -155,6 +155,7 @@ class ComplexTrainer(TrainerBase):
         """The reference's main loop: train epochs with an evaluation after
         each, LR halving and early stop on plateau, best and per-epoch
         checkpoints."""
+        timer = StepTimer()  # step to step, across epochs, as the JAX trainers log it
         n_epochs = max_epochs or self.cfg.n_epochs
         while self.epoch < n_epochs:
             logging.info("Epoch %d", self.epoch)
@@ -163,14 +164,15 @@ class ComplexTrainer(TrainerBase):
                     return
                 noisy, clean, frames = self.to_device(batch.noisy, batch.clean,
                                                       batch.frame_nums)
-                t0 = time.perf_counter()
                 loss, gnorms = self._train_step(
                     noisy, clean, frames, norms=self.step % self.grad_log_every == 0)
                 loss = float(loss)  # scalar readback: step complete
-                dt = time.perf_counter() - t0
+                dt = timer.tick()
                 self.check_nan(loss)
-                rec = {"train_batch_loss": loss, "step_time_ms": dt * 1e3,
-                       "utt_per_sec": self.cfg.batch_size / dt}
+                rec = {"train_batch_loss": loss}
+                if dt is not None:
+                    rec["step_time_ms"] = dt * 1e3
+                    rec["utt_per_sec"] = self.cfg.batch_size / dt
                 rec.update({k: float(v) for k, v in gnorms.items()})
                 self.metrics.log(rec, step=self.step)
                 self.step += 1

@@ -56,7 +56,6 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
-import time
 from typing import Optional
 
 import numpy as np
@@ -80,7 +79,7 @@ from prior_diffuse_tpu_torch.training.base import (TrainerBase, grad_groups,
                                                    group_grad_norms, sharded, spec_features)
 from prior_diffuse_tpu_torch.training.optim import get_lr, set_lr, torch_adam
 from prior_diffuse_tpu_torch.utils.logging import MetricsLogger
-from prior_diffuse_tpu_torch.utils.profiler import trace
+from prior_diffuse_tpu_torch.utils.profiler import StepTimer, trace
 
 
 def seeded_nets(seed: int, num_steps: int, cond_channels: int, mode: str = "pirorgrad",
@@ -321,6 +320,7 @@ class ComplexDDPMTrainer(TrainerBase):
 
     def _train_loop(self, n_epochs: int, max_steps: Optional[int],
                     profiling: contextlib.ExitStack) -> None:
+        timer = StepTimer()  # step to step, across epochs, as the JAX trainers log it
         while self.epoch < n_epochs:
             logging.info("Epoch %d", self.epoch)
             if not self.run.eval:
@@ -329,16 +329,17 @@ class ComplexDDPMTrainer(TrainerBase):
                         return
                     noisy, clean, frames = self.to_device(
                         batch.noisy, batch.clean, batch.frame_nums)
-                    t0 = time.perf_counter()
                     log_norms = self.step % self.grad_log_every == 0
                     total, l_dis, l_ddpm, gnorms = self._train_step(
                         noisy, clean, frames, norms=log_norms)
                     total = float(total)  # scalar readback: step complete
-                    dt = time.perf_counter() - t0
+                    dt = timer.tick()
                     self.check_nan(total)
                     rec = {"dis_loss": float(l_dis), "ddpm_loss": float(l_ddpm),
-                           "loss_sum": total, "step_time_ms": dt * 1e3,
-                           "utt_per_sec": self.cfg.batch_size / dt}
+                           "loss_sum": total}
+                    if dt is not None:
+                        rec["step_time_ms"] = dt * 1e3
+                        rec["utt_per_sec"] = self.cfg.batch_size / dt
                     rec.update({k: float(v) for k, v in gnorms.items()})
                     self.metrics.log(rec, step=self.step)
                     self.step += 1

@@ -3,23 +3,52 @@
 The counterpart of ``prior_diffuse_tpu/utils/profiler.py`` on
 ``torch.profiler``:
 
+* :class:`StepTimer` — rolling step-time / throughput statistics, step to
+  step (the trainers' ``step_time_ms`` and ``utt_per_sec``);
 * :func:`trace` — context manager around a ``torch.profiler`` capture that
   writes a Chrome trace (view with Perfetto, ``chrome://tracing`` or
   TensorBoard's profiler plugin);
 * :func:`flops_estimate` — the floating-point operations of one call,
   counted by ``torch.utils.flop_counter`` (the ptflops analog);
 * :func:`nan_guard` — autograd's anomaly detection.
-
-The JAX module's ``StepTimer`` is not ported: the trainers time each step
-alone (``step_time_ms``), not step to step as JAX's timer does.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+import time
+from collections import deque
+from typing import Deque, Optional
 
 import torch
+
+
+class StepTimer:
+    """Rolling mean of step wall-times with items/sec: each :meth:`tick`
+    times from the last one, so a step's time holds everything between two
+    steps' readbacks (the loader's wait, the metrics write), and the first
+    tick has none."""
+
+    def __init__(self, window: int = 50):
+        self._times: Deque[float] = deque(maxlen=window)
+        self._last: Optional[float] = None
+
+    def tick(self) -> Optional[float]:
+        """Call once per step; returns the last step duration (s)."""
+        now = time.perf_counter()
+        dt = None
+        if self._last is not None:
+            dt = now - self._last
+            self._times.append(dt)
+        self._last = now
+        return dt
+
+    @property
+    def mean(self) -> float:
+        return sum(self._times) / len(self._times) if self._times else 0.0
+
+    def items_per_sec(self, batch_size: int) -> float:
+        return batch_size / self.mean if self.mean else 0.0
 
 
 @contextlib.contextmanager

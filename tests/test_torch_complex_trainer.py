@@ -29,7 +29,9 @@ family compiles the JAX step once, in a module-scoped fixture:
   ``enhance_batch``'s waveform within 2.5e-4 x max|JAX|;
 * a checkpoint round trip: a trainer resumed with ``--retrain`` takes the
   next step as the one that saved it, bit for bit;
-* ``train()``: its log, checkpoints and plateau state; ``cli.main
+* ``train()``: its log, checkpoints and plateau state, and its train
+  records' keys step by step against the JAX trainer's (``step_time_ms``
+  and ``utt_per_sec`` from the second step on); ``cli.main
   --trainer ComplexTrainer`` on a tiny ``conf/gcrn.yml`` trains one epoch
   and ``--generate`` writes one wav per test utterance, and ``--trainer
   ComplexDDPMTrainer`` takes that yml's GCRN as its prior;
@@ -242,7 +244,10 @@ def test_train_logs_checkpoints_and_halves(corpus, tmp_path):
         recs = [json.loads(line) for line in f]
     steps = [r for r in recs if "train_batch_loss" in r]
     assert [r["step"] for r in steps] == [0, 1]
-    assert all(np.isfinite(r["train_batch_loss"]) and r["step_time_ms"] > 0 for r in steps)
+    assert all(np.isfinite(r["train_batch_loss"]) for r in steps)
+    # step to step, as JAX's StepTimer: nothing on the first step
+    assert "step_time_ms" not in steps[0] and "utt_per_sec" not in steps[0]
+    assert steps[1]["step_time_ms"] > 0 and steps[1]["utt_per_sec"] > 0
     assert "gn_model/glstm/lstm1_0" in steps[0] and not any(k.startswith("gn_") for k in steps[1])
     ev = next(r for r in recs if "test_loss" in r)
     assert tr.plateau.best_loss == ev["test_loss"]
@@ -348,3 +353,23 @@ def test_servers_need_a_card_and_serve_other_priors_in_f32_only(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="card"):
         PriorServer(gcrn, exp)
+
+
+def test_train_log_keys_match_jax(step_pair, corpus, tmp_path, monkeypatch):
+    """The train records of one epoch hold the JAX trainer's keys step by
+    step: no ``step_time_ms`` / ``utt_per_sec`` on the first step (both
+    time from one step to the next), the group norms on step 0.  The
+    evaluation is stubbed in both (not compared here); last in the file,
+    as it moves the JAX trainer's state on."""
+    jtr, name = step_pair["jtr"], step_pair["name"]
+    tr = _trainer(name, corpus, tmp_path)
+    logs = []
+    for trainer, assets in ((jtr, jtr.run.assets), (tr, str(tmp_path))):
+        monkeypatch.setattr(trainer, "evaluate", lambda: 1.0)
+        trainer.train()
+        with open(os.path.join(assets, "log", "t", "metrics.jsonl")) as f:
+            logs.append([r for r in map(json.loads, f) if "train_batch_loss" in r])
+    want, got = logs
+    assert len(want) == len(got) == 2
+    assert [set(r) for r in got] == [set(r) for r in want]
+    assert "step_time_ms" not in got[0] and "utt_per_sec" in got[1]

@@ -418,6 +418,8 @@ def test_cli_trains_then_generates(corpus, tmp_path, root_logging):  # noqa: F81
     with open(tmp_path / "assets" / "log" / "t" / "metrics.jsonl") as f:
         recs = [json.loads(line) for line in f]
     assert sum("train_batch_loss" in r for r in recs) == 2 and any("test_loss" in r for r in recs)
+    steps = [r for r in recs if "train_batch_loss" in r]  # MagTrainer: step to step
+    assert "step_time_ms" not in steps[0] and steps[1]["utt_per_sec"] > 0
     assert (tmp_path / "assets" / "checkpoint" / "t" / "best.pt").exists()
     cli.main(args + ["--generate"])
     outs = sorted(glob.glob(str(tmp_path / "assets" / "wav" / "t" / "*.wav")))

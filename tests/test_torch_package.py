@@ -2,8 +2,8 @@
 
 * Every module of ``prior_diffuse_tpu_torch`` imports with jax, flax, optax,
   orbax, yaml and the JAX package blocked, the training, bf16 serving,
-  diffusion-mode, prior, GRN, bf16-training, tooling and data-parallel
-  slices' included (the tooling imports matplotlib and wandb only when it
+  diffusion-mode, prior, GRN, bf16-training, tooling, data-parallel and
+  roofline slices' included (the tooling imports matplotlib and wandb only when it
   draws or mirrors), and ``conf/diff.yml``,
   ``conf/gcrn.yml``, ``conf/dbaiat.yml`` and ``conf/grn.yml`` load so: the machine with the GPU has none of
   them, and this test process imports jax (``conftest.py``), so an
@@ -93,6 +93,10 @@ PARALLEL_SLICE = ["parallel", "parallel.distributed", "parallel.mesh", "models.l
                   "serving.enhance", "training.base", "training.ddpm_trainer",
                   "training.complex_trainer", "training.mag_trainer", "utils.logging", "cli"]
 
+# the modules of the static roofline and the trainers' step-to-step timer
+ROOFLINE_SLICE = ["utils.roofline", "utils.profiler", "training.ddpm_trainer",
+                  "training.complex_trainer", "training.mag_trainer"]
+
 
 def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
@@ -102,7 +106,8 @@ def test_port_imports_without_jax():
     walked = set(proc.stdout.split())
     assert len(walked) >= 50  # every module was walked
     missing = [m for m in (TRAINING_SLICE + BF16_SERVING_SLICE + MODES_SLICE + PRIORS_SLICE
-                           + GRN_SLICE + BF16_TRAIN_SLICE + TOOLING_SLICE + PARALLEL_SLICE)
+                           + GRN_SLICE + BF16_TRAIN_SLICE + TOOLING_SLICE + PARALLEL_SLICE
+                           + ROOFLINE_SLICE)
                if f"prior_diffuse_tpu_torch.{m}" not in walked]
     assert not missing, missing
 

@@ -3,7 +3,8 @@
 * ``utils/profiler.py``: ``train_ddpm`` with ``run.profile_steps = 2``
   writes a Chrome trace of exactly its first 2 steps under
   ``<log_dir>/trace`` and takes the third untraced; ``flops_estimate`` of a
-  product equals JAX's XLA cost analysis of it; ``nan_guard`` toggles
+  product equals JAX's XLA cost analysis of it; ``StepTimer`` gives JAX's
+  step times, mean and items/sec on one clock; ``nan_guard`` toggles
   autograd's anomaly detection;
 * ``viz.py``: ``spec_db`` equals JAX's on the CPU (see its test for the
   bound) and ``draw_comparison`` writes a PNG;
@@ -114,6 +115,27 @@ def test_flops_estimate_equals_jax(shapes):
     got = profiler.flops_estimate(torch.matmul, torch.from_numpy(a), torch.from_numpy(b))
     want = jprof.flops_estimate(jnp.matmul, jnp.asarray(a), jnp.asarray(b))
     assert got == want == 2 * a.size * b.shape[-1]
+
+
+def test_step_timer_matches_jax(monkeypatch):
+    """JAX's ``test_step_timer`` on both timers, then both on one clock:
+    the same step times, rolling mean over the window and items/sec."""
+    import time
+
+    for timer in (jprof.StepTimer(window=4), profiler.StepTimer(window=4)):
+        assert timer.tick() is None and timer.mean == 0.0 and timer.items_per_sec(8) == 0.0
+        time.sleep(0.01)
+        dt = timer.tick()
+        assert dt is not None and dt > 0
+        assert timer.mean > 0 and timer.items_per_sec(8) > 0
+    readings = [iter([10.0, 10.5, 11.25, 12.0, 14.0]) for _ in range(2)]
+    got = []
+    for timer, clock in zip((jprof.StepTimer(window=3), profiler.StepTimer(window=3)),
+                            readings):
+        monkeypatch.setattr(time, "perf_counter", lambda c=clock: next(c))
+        got.append(([timer.tick() for _ in range(5)], timer.mean, timer.items_per_sec(6)))
+    assert got[0] == got[1]
+    assert got[1][0] == [None, 0.5, 0.75, 0.75, 2.0] and got[1][1] == 3.5 / 3
 
 
 def test_nan_guard_toggles_anomaly_detection():

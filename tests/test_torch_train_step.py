@@ -59,8 +59,12 @@ group norms and the same-sign updates, above the floor their own
 rounding sets.
 
 Also here: train-mode BatchNorm against flax's (output and running
-statistics, rtol 1e-5), which stock ``torch.nn.BatchNorm`` fails.
+statistics, rtol 1e-5), which stock ``torch.nn.BatchNorm`` fails; and
+the train records' keys of two ``train_ddpm`` steps against the JAX
+trainer's (``step_time_ms`` step to step, none on the first step).
 """
+
+import json
 
 import jax
 import jax.numpy as jnp
@@ -336,3 +340,30 @@ def test_eval_step_matches(step_pair):
         scale = 1.0 if name == "res_cos" else abs(float(want))
         assert abs(float(got) - float(want)) <= 2.5e-4 * scale, name
     assert sorted(g_diag) == sorted(diag)
+
+
+@pytest.mark.parametrize("step_pair", ["joint_sigma_eps"], indirect=True)
+def test_train_log_keys_match_jax(step_pair, tmp_path, monkeypatch):
+    """Two epochs of one step each through ``train_ddpm`` in both packages
+    (the default system; the evaluation stubbed in both, not compared
+    here): the train records hold the same keys step by step,
+    ``step_time_ms`` and ``utt_per_sec`` from the second step on (step to
+    step, JAX's ``StepTimer``).  Last in the file: it moves the JAX
+    trainer's state on (from the step's)."""
+    jtr = step_pair["jtr"]
+    # the fixture's step donated the initial state: its successor, placed as
+    # the trainer places a state (the step's compile is reused)
+    jtr.state = jtr.put_replicated(step_pair["jstate"])
+    run = tcfg.RunConfig(assets=str(tmp_path), doc="t", data_root=jtr.run.data_root,
+                         **step_pair["flags"])
+    tr = ComplexDDPMTrainer(run, _exp(tcfg, CONFIGS[step_pair["name"]][1]), device="cpu")
+    logs = []
+    for trainer, assets in ((jtr, jtr.run.assets), (tr, str(tmp_path))):
+        monkeypatch.setattr(trainer, "evaluate", lambda: 1.0)
+        trainer.train_ddpm(max_epochs=2)
+        with open(f"{assets}/log/t/metrics.jsonl") as f:
+            logs.append([r for r in map(json.loads, f) if "loss_sum" in r])
+    want, got = logs
+    assert len(want) == len(got) == 2
+    assert [set(r) for r in got] == [set(r) for r in want]
+    assert "step_time_ms" not in got[0] and "utt_per_sec" in got[1]
