@@ -157,7 +157,27 @@ Phases (each passes or ends the script with a non-zero exit):
    through their plain versions, equal in model FLOPs to the count under the
    plain versions; each timed (CUDA events and device ms) and its
    ``attained_fraction`` and ``mfu`` of both times printed, each at most
-   1.05; an unknown card fails.
+   1.05; an unknown card fails;
+14. the research drivers (``prior_diffuse_tpu_torch/scripts``), each through
+   its ``main`` from an empty working directory (which stays empty; no
+   file of the checkout changes): ``train_demo`` at full width (``DiffUNet``
+   + ``DiffUNet1``, 6 x 48000, ``--sigma``, 48 + 8 speech-like utterances)
+   in f32 and in bf16 compute from one seed, ``STEPS_A`` joint steps then
+   ``STEPS_B`` DDPM-only steps: every logged loss and gradient norm finite,
+   K1 = 2 launches a step, ``evaluate()`` K1 = 2, K2 = 2, K3 = 35 a cv
+   batch (K3 = 0 in bf16 compute), each served and prior-only batch K1 =
+   K2 = 1, stage B leaving the prior's parameters unchanged bit for bit
+   and moving the DDPM's, the prior's cv MSE after stage A below its value
+   at step 0, the six metrics of the floor, the prior alone and the chain
+   finite and the report under the run's assets; the two loss curves side
+   by side; ``eval_schedules`` on the f32 run's checkpoint in f32 and bf16
+   serving: seven finite rows of 0, 2, 3, 4, 6, 8 and 50 steps, each batch
+   K1 = 1, K2 = 1, K3 (or K3-bf16) = 5 x (1 + steps), with its ms and RTF
+   (CUDA events), and full-50's batch (255 K3 launches) through the kernels
+   against the plain versions (f32 ``PATH_RTOL``, bf16 ``BF16_PATH_RMS``);
+   ``diagnose_ddpm`` in both BatchNorm modes (finite; the trainer's
+   parameters and buffers unchanged bit for bit); ``probe_predictability``
+   for ``PROBE_STEPS`` regressor steps (finite).
 
 It prints a JSON line of per-kernel results before the last line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -845,13 +865,17 @@ def rel_rms(got, want) -> float:
 
 
 def run_main_path(device, dis, ddpm, card, dtype, mode: str = "pirorgrad",
-                  sigmas=(False, True)) -> dict:
+                  sigmas=(False, True), deep: bool = True) -> dict:
     """Phase 3 (pirorgrad), 7a (the other modes) or 8 (another prior) in
     ``dtype``: a batch for each of ``sigmas`` (``--sigma`` off, on) through
     the kernels, against the same enhancer through the plain versions and
-    (bf16) against f32 on one ``x_T``, its launch counts, CUDA-event ms,
-    device ms and kernel launches; the layers and top kernels of the plain
-    batch.  Returns the launch counts of each batch by path name."""
+    (bf16) against f32 on one ``x_T``, its launch counts and CUDA-event ms;
+    the plain batch's device ms, kernel launches and top kernels.  With
+    ``deep`` (phase 3) also the ``--sigma`` batch's plain-version ms, device
+    ms and launches and the plain batch's per-layer times; phases 7-9 leave
+    them out (each profiler pass costs seconds, and the modes and priors
+    cost what phase 3's batches cost).  Returns the launch counts of each
+    batch by path name."""
     import torch
 
     from prior_diffuse_tpu_torch.models.diffunet import DiffUNet
@@ -914,6 +938,11 @@ def run_main_path(device, dis, ddpm, card, dtype, mode: str = "pirorgrad",
         gen = torch.Generator(device=device).manual_seed(5)
         batch = lambda: enh.enhance_batch(wav_dev, gen)
         ms = cuda_ms(batch, iters=10, warmup=2)
+        if sigma and not deep:
+            print(f"enhance_batch [{label}] batch {BATCH} x {LENGTH // SR} s, fast-6: {ms:.3f} "
+                  f"ms/batch, RTF {BATCH * LENGTH / SR / (ms / 1e3):.1f}x; card {card}",
+                  flush=True)
+            continue
         with plain_versions():
             plain_ms = cuda_ms(batch, iters=5, warmup=1)
         dev = device_ms(batch, calls=3)
@@ -923,7 +952,8 @@ def run_main_path(device, dis, ddpm, card, dtype, mode: str = "pirorgrad",
               f"{plain_ms:.3f} ms); device {fmt(dev)} ms, {launches} kernel launches a batch; "
               f"card {card}", flush=True)
         if not sigma:
-            layer_times(enh, wav_dev, card, label)
+            if deep:
+                layer_times(enh, wav_dev, card, label)
             print(f"top kernels [{label}] by device ms per batch: " + "; ".join(
                 f"{name} {kernel_ms:.3f} ({n})" for name, kernel_ms, n in top), flush=True)
     return counts
@@ -1695,7 +1725,7 @@ def prior_ddpm_phase(device, card, root, corpus, name, net, ddpm) -> dict:
     from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
     from prior_diffuse_tpu_torch.training.ddpm_trainer import ComplexDDPMTrainer
 
-    paths = run_main_path(device, net, ddpm, card, torch.float32)
+    paths = run_main_path(device, net, ddpm, card, torch.float32, deep=False)
     server = prior_only_server(Enhancer(net, ddpm, mode_config("pirorgrad"), device=device))
     reset_counts()
     out = server.enhance_batch(speechlike(BATCH, LENGTH, 3))
@@ -1963,7 +1993,7 @@ def bf16_prior_phase(device, card, priors, ddpm) -> dict:
               f"ms/batch; device {fmt(device_ms(batch, calls=3))} ms, {launches} kernel "
               f"launches a batch; top kernels: " + "; ".join(
                   f"{k} {kms:.3f} ({n})" for k, kms, n in top) + f"; card {card}", flush=True)
-        paths.update(run_main_path(device, net, ddpm, card, torch.bfloat16))
+        paths.update(run_main_path(device, net, ddpm, card, torch.bfloat16, deep=False))
         bf16_card_vs_cpu(device, net, {"pirorgrad": ddpm}, BF16_PRIOR_CARD_VS_CPU_RMS[name],
                          f"{name} prior, ")
     return paths
@@ -2972,6 +3002,355 @@ def roofline_phase(device, card, nets, priors, root: str, corpus: str) -> None:
                      f"attained_fraction {v['attained_fraction']:.4f}, mfu {v['mfu']:.4f}")
 
 
+# ---- phase 14: the research drivers ------------------------------------------
+# train_demo's two stages at full width (DiffUNet + DiffUNet1, 6 x 48000,
+# --sigma, JAX's corpus of 48 + 8 speech-like utterances), in f32 and in bf16
+# compute from one seed: STEPS_A joint steps (evaluated at their end), then
+# STEPS_B DDPM-only steps; the prior's cv MSE must fall over stage A (on an
+# H100 it fell 2.43 -> 0.49 in 60 steps; 40 + 10 keep the whole script
+# inside its time limit).
+STEPS_A, STEPS_B = 40, 10
+DEMO_LOG_EVERY = 10
+SWEEP_REPS = 1
+PROBE_STEPS = 4
+
+
+@contextmanager
+def per_call_counts(log: list, targets):
+    """Wrap each ``(owner, attribute, label)`` of ``targets`` so that every
+    call appends ``(label, self, launches in that call)`` to ``log`` (the
+    counters read before and after; nothing is reset, so the path's total
+    stays whole)."""
+    import functools
+
+    patches = []
+    for owner, attr, label in targets:
+        orig = getattr(owner, attr)
+
+        def wrap(orig=orig, label=label):
+            @functools.wraps(orig)
+            def counted(*args, **kwargs):
+                before = read_counts()
+                out = orig(*args, **kwargs)
+                log.append((label, args[0] if args else None,
+                            {k: v - before[k] for k, v in read_counts().items()}))
+                return out
+            return counted
+        patches.append(mock.patch.object(owner, attr, wrap()))
+    for p in patches:
+        p.start()
+    try:
+        yield
+    finally:
+        for p in reversed(patches):
+            p.stop()
+
+
+def expect_calls(what: str, log: list, label: str, want, n: int = None) -> int:
+    """Fail unless each logged call ``label`` launched ``want(self)`` (a
+    dict; a kernel it leaves out: 0), and (if given) there were ``n``."""
+    calls = [(s, d) for lab, s, d in log if lab == label]
+    if n is not None and len(calls) != n:
+        fail(f"{what}: {len(calls)} calls of {label}, expected {n}")
+    for s, d in calls:
+        w = want(s)
+        w = {k: w.get(k, 0) for k in d}
+        if d != w:
+            fail(f"{what}: a call of {label} launched {d}, expected {w}")
+    return len(calls)
+
+
+def untouched_since(t0: float) -> list:
+    """Files under ROOT modified since ``t0``, outside hidden directories,
+    caches and the directories ``.gitignore`` lists (build outputs)."""
+    ignored = {"__pycache__"}
+    if os.path.isfile(os.path.join(ROOT, ".gitignore")):
+        with open(os.path.join(ROOT, ".gitignore")) as f:
+            ignored |= {line.strip().strip("/") for line in f if line.strip().endswith("/")}
+    out = []
+    for dirpath, dirnames, filenames in os.walk(ROOT):
+        dirnames[:] = [d for d in dirnames if not d.startswith(".") and d not in ignored]
+        out += [os.path.join(dirpath, f) for f in filenames
+                if os.path.getmtime(os.path.join(dirpath, f)) >= t0]
+    return out
+
+
+def demo_run(device, card, root: str, bf16: bool) -> tuple:
+    """Phase 14a: ``train_demo.main`` for one dtype; returns the launch
+    counts of the run, its final record and its metrics records."""
+    import torch
+
+    from prior_diffuse_tpu_torch.scripts import _setup, train_demo
+    from prior_diffuse_tpu_torch.serving.enhance import PriorServer
+    from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
+    from prior_diffuse_tpu_torch.training.ddpm_trainer import ComplexDDPMTrainer
+
+    tag = "bf16" if bf16 else "f32"
+    assets = os.path.join(root, f"demo_{tag}")
+    argv = ["--steps", str(STEPS_A), "--ddpm-steps", str(STEPS_B), "--sigma",
+            "--eval-every", str(STEPS_A), "--log-every", str(DEMO_LOG_EVERY),
+            "--assets", assets, "--device", "cuda"] + (["--bf16"] if bf16 else [])
+    args = train_demo.parse_args(argv)
+    train_demo.write_corpus(args)
+    # the prior's cv MSE at step 0: a trainer of stage A's seed and config
+    fresh = _setup.trainer(os.path.join(root, f"step0_{tag}"), "demo",
+                           train_demo.experiment(args), device, joint=True, sigma=True,
+                           data_root=_setup.corpus_dir(assets))
+    b = next(iter(fresh.cv_loader))
+    prior0 = float(fresh._eval_step(*fresh.put_batch(b.noisy, b.clean, b.frame_nums))[3][
+        "prior_mse"])
+    n_cv = len(fresh.cv_loader)
+    del fresh
+
+    stages = []
+    orig_stage = train_demo.run_stage
+
+    def stage(tr, until, args, t0):
+        snap = {n: [p.detach().clone() for p in m.parameters()] for n, m in tr.nets.items()}
+        out = orig_stage(tr, until, args, t0)
+        moved = {n: any(not torch.equal(a, p) for a, p in zip(snap[n], m.parameters()))
+                 for n, m in tr.nets.items()}
+        stages.append((tr.run.joint, moved, out))
+        return out
+
+    log = []
+    k3 = "enc_stage"  # a bf16-compute trainer serves without K3 or K3-bf16
+    reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(train_demo, "run_stage", stage), per_call_counts(log, [
+            (ComplexDDPMTrainer, "_train_step", "step"),
+            (ComplexDDPMTrainer, "evaluate", "evaluate"),
+            (Enhancer, "enhance_batch", "enhance"),
+            (PriorServer, "enhance_batch", "prior_only")]):
+        rec = train_demo.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"train_demo [{tag}]: {wall:.1f} s, launches {counts}", flush=True)
+
+    expect_calls(f"train_demo [{tag}]", log, "step", lambda s: {"stft": 2},
+                 STEPS_A + STEPS_B)
+    per_cv = {"stft": 2, "istft": 2, k3: 0 if bf16 else 35}
+    n_eval = expect_calls(f"train_demo [{tag}]", log, "evaluate",
+                          lambda s: {k: n_cv * v for k, v in per_cv.items()}, 2)
+    n_enh = expect_calls(f"train_demo [{tag}]", log, "enhance",
+                         lambda s: {"stft": 1, "istft": 1, k3: 0 if bf16 else 35})
+    n_prior = expect_calls(f"train_demo [{tag}]", log, "prior_only",
+                           lambda s: {"stft": 1, "istft": 1})
+    if not n_enh or n_enh != n_prior:
+        fail(f"train_demo [{tag}]: {n_enh} served batches, {n_prior} prior-only batches")
+    want = {"stft": 2 * (STEPS_A + STEPS_B) + n_eval * 2 * n_cv + n_enh + n_prior,
+            "istft": n_eval * 2 * n_cv + n_enh + n_prior,
+            "enc_stage": 0 if bf16 else n_eval * 35 * n_cv + 35 * n_enh}
+    expect_counts(f"train_demo [{tag}]", want)
+
+    # stage A moves both nets; stage B the DDPM alone, the prior bit for bit
+    if [(j, m) for j, m, _ in stages] != [(True, {"dis": True, "ddpm": True}),
+                                          (False, {"dis": False, "ddpm": True})]:
+        fail(f"train_demo [{tag}]: stages (joint, parameters moved): "
+             f"{[(j, m) for j, m, _ in stages]}")
+    print(f"train_demo [{tag}]: stage B left the prior's parameters unchanged bit for bit "
+          f"and moved the DDPM's; steps/s (host clock, evaluations and checkpoints out): "
+          f"stage A {stages[0][2]['steps_per_s']:.3f}, stage B "
+          f"{stages[1][2]['steps_per_s']:.3f}; card {card}", flush=True)
+
+    recs = metric_records(os.path.join(assets, "log", "demo"))
+    losses = [r for r in recs if "loss_sum" in r]
+    diags = [r for r in recs if "test_prior_mse" in r]
+    if [r["step"] for r in losses] != list(range(DEMO_LOG_EVERY, STEPS_A + STEPS_B + 1,
+                                                 DEMO_LOG_EVERY)):
+        fail(f"train_demo [{tag}]: loss records at steps {[r['step'] for r in losses]}")
+    if not finite(v for r in losses for k, v in r.items() if k != "time"):
+        fail(f"train_demo [{tag}]: a non-finite loss or gradient norm")
+    if [r["step"] for r in diags] != [STEPS_A, STEPS_A + STEPS_B]:
+        fail(f"train_demo [{tag}]: evaluations at steps {[r['step'] for r in diags]}")
+    prior_a = diags[0]["test_prior_mse"]
+    print(f"train_demo [{tag}]: cv prior_mse {prior0:.5f} at step 0, {prior_a:.5f} after "
+          f"stage A (step {STEPS_A})", flush=True)
+    if not prior_a < prior0:
+        fail(f"train_demo [{tag}]: the prior's cv MSE did not fall over stage A "
+             f"({prior0} -> {prior_a})")
+    for r in diags:
+        print(f"train_demo [{tag}] evaluate() at step {r['step']}: " + ", ".join(
+            f"{k[5:]} {r[k]:.5f}" for k in ("test_prior_mse", "test_chain_mse",
+                                            "test_res_energy_true",
+                                            "test_res_energy_sampled", "test_res_cos")),
+              flush=True)
+    if not finite(v for part in ("floor", "prior_only", "enhanced") for v in rec[part].values()):
+        fail(f"train_demo [{tag}]: non-finite metrics {rec}")
+    if rec["step"] != STEPS_A + STEPS_B or not os.path.isfile(
+            os.path.join(assets, "demo_speechlike.md")):
+        fail(f"train_demo [{tag}]: step {rec['step']}, or no report under {assets}")
+    for part in ("floor", "prior_only", "enhanced"):
+        print(f"train_demo [{tag}] {part}: " + " ".join(
+            f"{k} {v:.3f}" for k, v in rec[part].items()) + f" (pesq {rec['pesq_mode']})",
+              flush=True)
+    return counts, rec, losses
+
+
+def sweep_run(device, card, assets: str, bf16: bool) -> dict:
+    """Phase 14b: ``eval_schedules.main`` on the f32 demo's checkpoint in one
+    serving dtype; then full-50's batch through the kernels against the
+    plain versions; returns the sweep's launch counts."""
+    import torch
+
+    from prior_diffuse_tpu_torch.scripts import eval_schedules
+    from prior_diffuse_tpu_torch.serving.enhance import PriorServer
+    from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
+
+    tag = "bf16" if bf16 else "f32"
+    k3 = "enc_stage_bf16" if bf16 else "enc_stage"
+    log = []
+    reset_counts()
+    with per_call_counts(log, [(Enhancer, "enhance_batch", "enhance"),
+                               (PriorServer, "enhance_batch", "prior_only")]):
+        rows = eval_schedules.main(["--assets", assets, "--doc", "demo", "--sigma",
+                                    "--reps", str(SWEEP_REPS), "--device", "cuda"]
+                                   + (["--bf16"] if bf16 else []))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    servers = {}
+    for label, s, _ in log:
+        servers.setdefault(0 if label == "prior_only" else s.sched.num_steps, s)
+    expect_calls(f"eval_schedules [{tag}]", log, "enhance",
+                 lambda s: {"stft": 1, "istft": 1, k3: 5 * (1 + s.sched.num_steps)})
+    expect_calls(f"eval_schedules [{tag}]", log, "prior_only",
+                 lambda s: {"stft": 1, "istft": 1})
+    if [r["steps"] for r in rows] != [0, 2, 3, 4, 6, 8, 50] or sorted(servers) != [
+            0, 2, 3, 4, 6, 8, 50]:
+        fail(f"eval_schedules [{tag}]: rows of {[r['steps'] for r in rows]} steps")
+    keys = ["ms_per_batch", "rtf", "utt_per_s", "csig", "cbak", "covl", "pesq", "ssnr", "stoi"]
+    for r in rows:
+        if not finite(r[k] for k in keys):
+            fail(f"eval_schedules [{tag}]: non-finite row {r}")
+        per = 5 * (1 + r["steps"]) if r["steps"] else 0
+        print(f"eval_schedules [{tag}] {r['variant']}: {r['steps']} steps, served "
+              f"{r['served']}, {r['ms_per_batch']} ms a batch of 8 x 3 s (CUDA events, mean "
+              f"of {SWEEP_REPS}), RTF {r['rtf']}, {r['utt_per_s']} utt/s; CSIG {r['csig']} "
+              f"CBAK {r['cbak']} COVL {r['covl']} PESQ {r['pesq']} SSNR {r['ssnr']} STOI "
+              f"{r['stoi']}; a batch launches K1 1, K2 1, {k3} {per}; card {card}", flush=True)
+    print(f"eval_schedules [{tag}]: launches {counts}", flush=True)
+
+    # the deepest K3 chain of any phase: full-50's batch against the plain versions
+    enh = servers[50]
+    wav = torch.from_numpy(speechlike(BATCH, LENGTH, 31)).to(device)
+    g = torch.Generator(device=device).manual_seed(32)
+    x_T = torch.randn((1, BATCH, T_FRAMES, 161, 2), generator=g, device=device)
+    reset_counts()
+    got = enh.enhance_batch(wav, x_T=x_T)
+    expect_counts(f"full-50 [{tag}] batch", {"stft": 1, "istft": 1, k3: 255})
+    with plain_versions():
+        want = enh.enhance_batch(wav, x_T=x_T)
+    if bf16:
+        err = rel_rms(got, want)
+        print(f"full-50 [bf16] batch through the kernels vs the plain versions: relative "
+              f"RMS {err:.3e} (bound {BF16_PATH_RMS:g})", flush=True)
+        if err > BF16_PATH_RMS:
+            fail("full-50 [bf16]: kernels disagree with the plain versions")
+    else:
+        expect_close("full-50 [f32] batch through the kernels vs the plain versions", got,
+                     want, PATH_RTOL)
+    return counts
+
+
+def diagnose_run(device, assets: str) -> dict:
+    """Phase 14c: ``diagnose_ddpm.main`` on the f32 demo's checkpoint, both
+    BatchNorm modes; the trainer's buffers unchanged bit for bit by each
+    probe; returns its launch counts."""
+    import torch
+
+    from prior_diffuse_tpu_torch.scripts import diagnose_ddpm
+
+    orig = diagnose_ddpm.probe
+    probes = []
+
+    def probe(tr, *args, **kwargs):
+        snap = {n: {k: v.clone() for k, v in m.state_dict().items()} for n, m in tr.nets.items()}
+        out = orig(tr, *args, **kwargs)
+        probes.append(all(torch.equal(snap[n][k], v) for n, m in tr.nets.items()
+                          for k, v in m.state_dict().items()))
+        return out
+
+    reset_counts()
+    with mock.patch.object(diagnose_ddpm, "probe", probe):
+        recs = diagnose_ddpm.main(["--assets", assets, "--sigma", "--device", "cuda"])
+    counts = read_counts()
+    if [r["bn"] for r in recs] != ["running", "batch"] or probes != [True, True]:
+        fail(f"diagnose_ddpm: modes {[r['bn'] for r in recs]}, buffers kept {probes}")
+    for r in recs:
+        vals = [r[k] for k in ("prior_mse", "chain_mse", "res_energy_true",
+                               "res_energy_sampled", "res_cos")]
+        vals += [s[k] for s in r["eps_mse_per_step"] for k in ("model", "trivial")]
+        if len(r["eps_mse_per_step"]) != 6 or not finite(vals):
+            fail(f"diagnose_ddpm: {r}")
+        print(f"diagnose_ddpm [{r['bn']} BN]: prior_mse {r['prior_mse']:.5f} chain_mse "
+              f"{r['chain_mse']:.5f} e_true {r['res_energy_true']:.6f} e_samp "
+              f"{r['res_energy_sampled']:.6f} cos {r['res_cos']:.4f}; eps MSE model / trivial "
+              "per step " + ", ".join(f"{s['model']:.4f}/{s['trivial']:.4f}"
+                                      for s in r["eps_mse_per_step"]), flush=True)
+    print(f"diagnose_ddpm: the trainer's parameters and BN buffers unchanged bit for bit by "
+          f"both probes; launches {counts}", flush=True)
+    return counts
+
+
+def probe_run(assets: str) -> dict:
+    """Phase 14d: ``probe_predictability.main``, a few regressor steps at
+    full width; returns its launch counts."""
+    from prior_diffuse_tpu_torch.scripts import probe_predictability
+
+    reset_counts()
+    rec = probe_predictability.main(["--assets", assets, "--sigma", "--steps",
+                                     str(PROBE_STEPS), "--eval-every", str(PROBE_STEPS),
+                                     "--device", "cuda"])
+    counts = read_counts()
+    if rec["step"] != PROBE_STEPS or not finite(
+            rec[k] for k in ("val_mse", "val_cos", "e_pred", "e_true")) or not os.path.isfile(
+            os.path.join(assets, "probe_predictability_cond.json")):
+        fail(f"probe_predictability: {rec}")
+    print(f"probe_predictability: {rec}; launches {counts}", flush=True)
+    return counts
+
+
+def drivers_phase(device, card, root: str) -> dict:
+    """Phase 14: the research drivers (``prior_diffuse_tpu_torch/scripts``):
+    ``train_demo`` in f32 and in bf16 compute (the loss curves side by side),
+    ``eval_schedules`` on the f32 run's checkpoint in f32 and bf16 serving,
+    ``diagnose_ddpm`` and ``probe_predictability``; each from an empty
+    working directory, which stays empty, and no file of the checkout is
+    touched.  Returns the launch counts of each path."""
+    base = os.path.join(root, "drivers")
+    cwd = os.path.join(base, "cwd")
+    os.makedirs(cwd)
+    t_start = time.time()
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        paths, curves = {}, {}
+        for bf16 in (False, True):
+            tag = "bf16" if bf16 else "f32"
+            paths[f"drivers_demo_{tag}"], _, curves[tag] = demo_run(device, card, base, bf16)
+        print("train_demo loss curves (loss_sum / dis_loss / ddpm_loss), f32 | bf16:",
+              flush=True)
+        for a, b in zip(curves["f32"], curves["bf16"]):
+            print(f"  step {a['step']}: {a['loss_sum']:.5f} / {a['dis_loss']:.5f} / "
+                  f"{a['ddpm_loss']:.5f} | {b['loss_sum']:.5f} / {b['dis_loss']:.5f} / "
+                  f"{b['ddpm_loss']:.5f}", flush=True)
+        assets = os.path.join(base, "demo_f32")
+        for bf16 in (False, True):
+            paths[f"drivers_sweep_{'bf16' if bf16 else 'f32'}"] = sweep_run(
+                device, card, assets, bf16)
+        paths["drivers_diagnose"] = diagnose_run(device, assets)
+        paths["drivers_probe"] = probe_run(assets)
+    finally:
+        os.chdir(here)
+    stray = os.listdir(cwd) + untouched_since(t_start)
+    if stray:
+        fail(f"the drivers wrote outside their assets: {stray[:10]}")
+    print("the drivers wrote under their --assets only (the working directory stayed "
+          "empty; no file of the checkout changed)", flush=True)
+    return paths
+
+
 def main() -> None:
     import torch
 
@@ -3030,7 +3409,8 @@ def main() -> None:
         for mode, ddpm in denoisers.items():
             for dtype in (torch.float32, torch.bfloat16):
                 paths.update(run_main_path(device, nets[0], ddpm, card, dtype, mode,
-                                           (False, True) if mode == "deltamu" else (False,)))
+                                           (False, True) if mode == "deltamu" else (False,),
+                                           deep=False))
         bf16_card_vs_cpu(device, nets[0], {"pirorgrad": nets[1], **denoisers})
         for mode in MODES:
             paths[f"train_step_{mode}"], paths[f"evaluate_cv_batch_{mode}"] = \
@@ -3053,7 +3433,9 @@ def main() -> None:
         paths.update(dp_phase(device, card, root, corpus))
         mark(13)
         roofline_phase(device, card, nets, priors, root, corpus)
-        mark("13 done")
+        mark(14)
+        paths.update(drivers_phase(device, card, root))
+        mark("14 done")
 
     # (route, source, replaces, the path whose run "launches" counts)
     meta = {
