@@ -42,20 +42,20 @@ Phases (each passes or ends the script with a non-zero exit):
    f32), plain and ``--sigma``: through the kernels against the plain
    versions (relative RMS), against the f32 enhancer on the same weights and
    draws (between a floor and a ceiling), launch counts K1 = 1, K2 = 1,
-   K3-bf16 = 35, K3 = 0; its time and layer breakdown;
+   K3-bf16 = 35, K3 = 0;
 4. five requests of 1-4 s through ``serving.enhance.enhance_files`` in f32
    and bf16; one 30 s wav through ``serving.streaming.enhance_long`` in bf16
    (finite, seam-free) and through ``prior_only_server`` (K1 and K2 only);
 5. training at full width: ``ComplexDDPMTrainer`` of ``conf/diff.yml``
    (batch 6 x 48000, ``--joint --sigma``, weights from a seed) on a
-   synthetic corpus of 24 + 8 utterances of 3-4 s.  K1 against its plain
+   synthetic corpus of 24 + 8 utterances of 3-4 s. K1 against its plain
    version at ``[6, 48000]``; one train step through K1 against the same
    step through the plain STFT (losses and gradients), and through K1 with
-   a wrong window, which that check must reject; 10 timed steps (K1 = 2
-   launches a step); one step's device ms and kernel launches (profiler);
-   ``evaluate()`` (K1 = 2, K2 = 2, K3 = 35 a cv batch), then K2 and K3
-   against their plain versions at the trained weights' eval shapes; a
-   checkpoint restored into a fresh trainer takes the same next step;
+   a wrong window, which that check must reject; a step on each train batch
+   (K1 = 2 launches a step, finite losses); ``evaluate()`` (K1 = 2, K2 = 2,
+   K3 = 35 a cv batch), then K2 and K3 against their plain versions at the
+   trained weights' eval shapes; a checkpoint restored into a fresh trainer
+   takes the same next step;
 6. the entry point: ``cli.main`` trains 2 epochs on that corpus and writes
    its log and checkpoints, then ``--generate`` writes one wav per test
    utterance;
@@ -65,11 +65,11 @@ Phases (each passes or ends the script with a non-zero exit):
    in f32 and bf16, each through the kernels against the plain versions
    (f32 ``PATH_RTOL``, bf16 ``BF16_PATH_RMS``), bf16 against f32 on the
    same weights and ``x_T``, launch counts K1 = 1, K2 = 1, K3 or K3-bf16 =
-   35, with its CUDA-event ms, device ms and kernel launches; the bf16
+   35; the bf16
    enhancer on the card against the same enhancer on the CPU (the plain
    versions, the CPU branch the tests hold to JAX) at 2 x 0.5 s in each
    mode; and the trainer of phase 5 in each mode: the K1 step against the
-   plain-STFT step, 5 timed steps, one ``evaluate()`` cv batch (K1 = 2,
+   plain-STFT step, a step on each train batch, one ``evaluate()`` cv batch (K1 = 2,
    K2 = 2, K3 = 35);
 8. the GCRN and DB-AIAT priors (``conf/gcrn.yml``, ``conf/dbaiat.yml``):
    the five families' parameter counts against the reference oracle;
@@ -77,22 +77,22 @@ Phases (each passes or ends the script with a non-zero exit):
    the same module on the CPU, with TF32 off (bounded) and on (printed);
    ``ComplexTrainer.enhance_batch`` on the batch of phase 3 for GCRN and
    ``aia_complex_trans_ri`` (K1 = 1, K2 = 1, K3 = 0) against the plain
-   versions, timed, plus five requests through ``enhance_files``; each of
+   versions, plus five requests through ``enhance_files``; each of
    those priors under ``ComplexDDPMTrainer``'s ``Enhancer`` (plain and
    ``--sigma``: K1 = 1, K2 = 1, K3 = 30, the prior unpacked) and
    ``prior_only_server``, then that trainer's joint step and one
    ``evaluate()`` cv batch; ``ComplexTrainer`` training at each config's
    width (GCRN 8 x 48000, DB-AIAT 4 x 48000): the K1 step against the
-   plain-STFT step (and the wrong window rejected), 5 timed steps,
+   plain-STFT step (and the wrong window rejected), a step on each train batch,
    ``evaluate()`` (K1 = 2, K2 = 2 a cv batch); and ``cli.main --trainer
    ComplexTrainer`` on each yml for one epoch, then ``--generate``;
 9. ``conf/grn.yml``'s GRN (3,131,731 parameters) with ``MagTrainer``: its
    forward on the card against the CPU at [8, 301, 161] (TF32 off bounded,
    on printed); ``MagTrainer.enhance_batch`` on the batch of phase 3 (K1 =
-   1, K2 = 1, K3 = 0) against the plain versions, timed, and five requests
+   1, K2 = 1, K3 = 0) against the plain versions, and five requests
    through ``enhance_files``; training at 8 x 48000 on phase 5's corpus with
    two more test utterances (the K1 step against the plain-STFT step, the
-   wrong window rejected, 5 timed steps with peak memory, ``evaluate()``
+   wrong window rejected, a step on each train batch, ``evaluate()``
    with K1 = 2, K2 = 2 a cv batch over cv batches of 8 and a ragged 2);
    ``cli.main --trainer MagTrainer`` for one epoch, then ``--generate``;
    DiffWave at full width (64 x 30) on the card against the CPU at [2,
@@ -101,40 +101,37 @@ Phases (each passes or ends the script with a non-zero exit):
    in bf16 (K1 = 1, K2 = 1) against the plain versions and against f32
    (a floor and a ceiling), the bf16 ``Enhancer`` (pirorgrad, plain and
    ``--sigma``: K1 = 1, K2 = 1, K3-bf16 = 30, K3 = 0) through the kernels
-   against the plain versions, against f32, timed, and on the card against
+   against the plain versions, against f32, and on the card against
    the CPU at 2 x 0.5 s;
 10. bf16 training (``train.compute_dtype: bfloat16``, f32 parameters and
    Adam state): ``conf/diff.yml``'s trainer at 6 x 48000, ``--joint
    --sigma``: one bf16 step through K1 against the same step through the
-   plain STFT (losses and gradients; the plain STFT perturbed at float32's
-   rounding printed beside it, and K1 with a window defect, the control,
+   plain STFT (losses and gradients; K1 with a window defect, the control,
    rejected), against the f32 step on the same weights, batch and draws
-   (near, and not equal), and on the card against the CPU at 2 x 0.5 s; 10
-   timed steps of each dtype in turns (ms, utterances/s, peak memory),
-   each step's device ms and launches; ``evaluate()`` on the bf16-compute
+   (near, and not equal), and on the card against the CPU at 2 x 0.5 s; a
+   step of each dtype on each train batch; ``evaluate()`` on the bf16-compute
    path (K1 = 2, K2 = 2 a cv batch, K3 = 0); a checkpoint restored into a
    fresh trainer; ``cli.main`` on a bf16 copy of the yml for one epoch and
    ``--generate`` (K3 = 0); then ``ComplexTrainer`` (GCRN 8 x 48000,
    ``aia_complex_trans_ri`` 4 x 48000) and ``MagTrainer`` (GRN 8 x 48000)
-   in bf16: the K1 step against the plain-STFT step, 5 timed steps with
-   peak memory, and ``enhance_batch`` (K1 = 1, K2 = 1);
+   in bf16: the K1 step against the plain-STFT step, a step on each train
+   batch, and ``enhance_batch`` (K1 = 1, K2 = 1);
 11. the tooling around the train loop, on phase 5's corpus: the native
    train loader (``runtime/native.py``, built with ``g++`` at first use,
    the trainers' default) serves all 4 batches of an epoch at 6 x 48000,
    equal bit for bit to a numpy re-derivation of its crops (``start % (len
-   - chunk + 1)`` of one ``integers(0, 2**62)`` draw a batch), with its ms
-   a batch beside the Python path's; ``python -m prior_diffuse_tpu_torch.cli
-   --joint --sigma --profile-steps 2`` for one epoch in a process of its
-   own: its Chrome trace holds one kernel record for each launch call and
-   exactly 4 K1 launches (2 steps), and its launches a step are printed
-   beside phase 5's profiler count; ``cli.main --draw --retrain`` on that run's
-   checkpoint: one cv batch (K1 = 2, K2 = 2, K3 = 35), its ``draw_*``
-   record, and one figure call per utterance with the trainer's device
-   (recorded, not drawn: this machine may have no matplotlib); ``spec_db``
-   of one figure's waveforms on the card (K1) against the CPU (the plain
-   version), magnitudes within ``KERNEL_RTOL`` of the peak; ``python -m
-   prior_diffuse_tpu_torch.metrics.compare`` on the clean test set against
-   phase 6's ``--generate`` output prints six finite metrics;
+   - chunk + 1)`` of one ``integers(0, 2**62)`` draw a batch); ``python -m
+   prior_diffuse_tpu_torch.cli --joint --sigma --profile-steps 2`` for one
+   epoch in a process of its own: its Chrome trace holds one kernel record
+   for each launch call and exactly 4 K1 launches (2 steps); ``cli.main
+   --draw --retrain`` on that run's checkpoint: one cv batch (K1 = 2, K2 =
+   2, K3 = 35), its ``draw_*`` record, and one figure call per utterance
+   with the trainer's device (recorded, not drawn: this machine may have no
+   matplotlib); ``spec_db`` of one figure's waveforms on the card (K1)
+   against the CPU (the plain version), magnitudes within ``KERNEL_RTOL``
+   of the peak; ``python -m prior_diffuse_tpu_torch.metrics.compare`` on
+   the clean test set against phase 6's ``--generate`` output prints six
+   finite metrics;
 12. data parallelism (``parallel/``), on phase 5's corpus: ``conf/diff.yml``'s
    trainer (``--joint --sigma``) on two ranks of a gloo group sharing the
    card (this script with ``--dp-rank``, each rank a process of its own
@@ -143,13 +140,13 @@ Phases (each passes or ends the script with a non-zero exit):
    a rank) and one on a ragged 5 (padded to 6 as JAX pads it) against the
    one-process step on the same global batch, weights and draws (losses,
    group norms, BN running statistics, updates; the ranks' nets equal bit
-   for bit; K1 = 2 launches a step on each rank), each world size's ms a
-   step, and ``evaluate()`` of one cv batch against the one process's (cv
+   for bit; K1 = 2 launches a step on each rank), and ``evaluate()`` of one
+   cv batch against the one process's (cv
    loss, diagnostics, the six metrics scored on rank 0; K1 = 2, K3 = 35 on
    each rank, K2 = 2 on rank 0 alone); then ``python -m
    torch.distributed.run --standalone --nproc_per_node=1 -m
    prior_diffuse_tpu_torch.cli`` on NCCL for one epoch (rank 0's log,
-   metrics and checkpoints) and ``--generate``;
+   metrics and checkpoints), run beside the ranks, and ``--generate``;
 13. the static roofline (``utils/roofline.py``): the f32 and bf16 serving
    batch, the f32 and bf16 train step and the GCRN and DB-AIAT batches alone,
    each counted on the card (model and padded FLOPs, product bytes and the
@@ -179,14 +176,18 @@ Phases (each passes or ends the script with a non-zero exit):
    parameters and buffers unchanged bit for bit); ``probe_predictability``
    for ``PROBE_STEPS`` regressor steps (finite).
 
-It prints a JSON line of per-kernel results before the last line, and as
-its last line ``{"ok": true, "device": {...}}``.
+Timing that no check reads is ``tools/card_numbers.py``'s.  The script
+prints where its own seconds went (``{"phase_seconds": {phase: {"setup",
+"check", "measure", "subprocess"}}, "total_s"}``, :class:`Accounts`), then
+a JSON line of per-kernel results, and as its last line ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import glob
 import json
 import os
@@ -242,6 +243,7 @@ STEP_GRAD_RTOL = 1e-3
 STEP_UPDATE_RTOL = 1e-3
 STEADY_GRAD = 1e-6
 TRAIN_BATCH, CORPUS = 6, (24, 8)  # conf/diff.yml's batch; train, test utterances
+UTTERANCE_LEN = (48000, 64000)  # the corpus's utterances: 3-4 s
 PARAMS = {"dis": 1_662_565, "ddpm": 2_780_273}  # published DiffUNet, DiffUNet1
 NOCON_PARAMS = 2_780_263  # the deltamu denoiser: DiffUNet1 without its preprocess
 MODES = {"deltamu": {"pirorgrad": False, "deltamu": True}, "conditional": {"pirorgrad": False}}
@@ -317,6 +319,69 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+KINDS = ("setup", "check", "measure", "subprocess")
+
+
+class Accounts:
+    """Seconds of a run by phase and kind: builds of nets, trainers and
+    corpora (``setup``), the work a ``fail(...)`` reads (``check``), timing
+    and profiling (``measure``), child processes (``subprocess``).  Each
+    second goes to the phase last named by :meth:`phase` and to the
+    innermost open :meth:`spent` block (``check`` outside any)."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+        self.name, self.kinds, self.seconds = "0-1", ["check"], {}
+
+    def _book(self) -> None:
+        now = time.perf_counter()
+        row = self.seconds.setdefault(self.name, dict.fromkeys(KINDS, 0.0))
+        row[self.kinds[-1]] += now - self.t
+        self.t = now
+
+    def phase(self, name: str) -> None:
+        self._book()
+        self.name = name
+
+    @contextmanager
+    def spent(self, kind: str):
+        if kind not in KINDS:
+            raise ValueError(f"kind {kind!r} is not one of {KINDS}")
+        self._book()
+        self.kinds.append(kind)
+        try:
+            yield
+        finally:
+            self._book()
+            self.kinds.pop()
+
+    def line(self) -> dict:
+        """``{"phase_seconds": {phase: {kind: s}}, "total_s": s}``."""
+        self._book()
+        return {"phase_seconds": {p: {k: round(s, 3) for k, s in row.items()}
+                                  for p, row in self.seconds.items()},
+                "total_s": round(self.t - self.t0, 3)}
+
+
+ACCOUNTS = Accounts()
+
+
+def spent(kind: str):
+    """Book the block's seconds under ``kind`` (:class:`Accounts`)."""
+    return ACCOUNTS.spent(kind)
+
+
+def booked(kind: str):
+    """Decorate a function so that each call's seconds go to ``kind``."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with spent(kind):
+                return fn(*args, **kwargs)
+        return inner
+    return deco
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -326,6 +391,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@booked("measure")
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` in ms, from CUDA events after warm-up."""
     import torch
@@ -343,6 +409,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+@booked("measure")
 def in_turns(kernel, library) -> dict:
     """Kernel against its library yardstick in turns (kernel, library,
     library, kernel): ``ms`` and ``library_ms`` are the slower of each pair,
@@ -354,6 +421,7 @@ def in_turns(kernel, library) -> dict:
             "slower_than_library": k1 > l1 and k2 > l2}
 
 
+@booked("measure")
 def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
     """Device time per call of ``fn`` from CUDA-graph replays (``calls``
     calls a graph, ``replays`` replays between two CUDA events), so the
@@ -381,13 +449,13 @@ def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (replays * calls)
 
 
+@booked("measure")
 def device_ms(fn, calls: int = 5):
     """Summed device time (kernels, copies, fills) per call of ``fn`` in ms,
     from a ``torch.profiler`` pass over ``calls`` calls after a warm-up; a
     pass that records no device event is repeated (twice at most), then
     the result is None (not measured)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -397,14 +465,24 @@ def device_ms(fn, calls: int = 5):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        # an annotated range (the optimizer's step) on the device timeline
-        # spans kernels counted on their own
-        us = sum(e.device_time_total for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and not getattr(e, "is_user_annotation", False))
+        us = device_us(prof)
         if us > 0:
             return us / calls / 1e3
     return None
+
+
+def device_us(prof) -> float:
+    """The summed duration in us of a finished profile's device events
+    (kernels, copies, fills), read from its kineto events: what
+    ``prof.events()`` sums as the ``device_time_total`` of its CUDA events,
+    without the event tree that ``events()`` builds in Python (seconds for a
+    train step's ~10,000 launches).  An annotated range (the optimizer's
+    step) on the device timeline spans kernels counted on their own."""
+    from torch.autograd import DeviceType
+
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+               and not getattr(e, "is_hidden_event", lambda: False)()) / 1e3
 
 
 def fmt(ms) -> str:
@@ -540,6 +618,7 @@ def speechlike(n: int, length: int, seed: int) -> np.ndarray:
     return (x / np.sqrt(np.mean(x ** 2, axis=1, keepdims=True))).astype(np.float32)
 
 
+@booked("setup")
 def seeded_nets(seed: int, device, classes=None):
     """Full-width nets (``DiffUNet`` and ``DiffUNet1`` unless ``classes``
     names others) with weights drawn from an explicit
@@ -864,18 +943,14 @@ def rel_rms(got, want) -> float:
     return float(torch.sqrt(torch.mean((got - want) ** 2) / torch.mean(want ** 2)))
 
 
-def run_main_path(device, dis, ddpm, card, dtype, mode: str = "pirorgrad",
-                  sigmas=(False, True), deep: bool = True) -> dict:
+def run_main_path(device, dis, ddpm, dtype, mode: str = "pirorgrad",
+                  sigmas=(False, True)) -> dict:
     """Phase 3 (pirorgrad), 7a (the other modes) or 8 (another prior) in
     ``dtype``: a batch for each of ``sigmas`` (``--sigma`` off, on) through
     the kernels, against the same enhancer through the plain versions and
-    (bf16) against f32 on one ``x_T``, its launch counts and CUDA-event ms;
-    the plain batch's device ms, kernel launches and top kernels.  With
-    ``deep`` (phase 3) also the ``--sigma`` batch's plain-version ms, device
-    ms and launches and the plain batch's per-layer times; phases 7-9 leave
-    them out (each profiler pass costs seconds, and the modes and priors
-    cost what phase 3's batches cost).  Returns the launch counts of each
-    batch by path name."""
+    (bf16) against f32 on one ``x_T``, with its launch counts.  Returns the
+    launch counts of each batch by path name (:func:`serve_path`); its times
+    are ``tools/card_numbers.py``'s."""
     import torch
 
     from prior_diffuse_tpu_torch.models.diffunet import DiffUNet
@@ -887,20 +962,17 @@ def run_main_path(device, dis, ddpm, card, dtype, mode: str = "pirorgrad",
     want = {"stft": 1, "istft": 1,
             "enc_stage_bf16" if bf16 else "enc_stage": 35 if packed_prior else 30}
     wav = speechlike(BATCH, LENGTH, 3)
-    wav_dev = torch.from_numpy(wav).to(device)
     counts = {}
     for sigma in sigmas:
-        label = (("" if packed_prior else f"{type(dis).__name__} prior, ")
-                 + f"{mode}, {'bf16' if bf16 else 'f32'}, {'sigma' if sigma else 'plain'}")
-        enh = Enhancer(dis, ddpm, mode_config(mode), device=device, sigma=sigma, dtype=dtype)
+        label = serve_label(dis, mode, dtype, sigma)
+        with spent("setup"):
+            enh = Enhancer(dis, ddpm, mode_config(mode), device=device, sigma=sigma, dtype=dtype)
         if enh.mode != mode:
             fail(f"the enhancer serves {enh.mode}, not {mode}")
         reset_counts()
         out = enh.enhance_batch(wav, torch.Generator(device=device).manual_seed(4))
         torch.cuda.synchronize()
-        path = ("serve_batch" + ("" if packed_prior else f"_{type(dis).__name__}")
-                + ("" if mode == "pirorgrad" else f"_{mode}")
-                + ("_bf16" if bf16 else "") + ("_sigma" if sigma else ""))
+        path = serve_path(dis, mode, dtype, sigma)
         counts[path] = expect_counts(f"one batch [{label}]", want)
         with plain_versions():
             ref = enh.enhance_batch(wav, torch.Generator(device=device).manual_seed(4))
@@ -918,7 +990,8 @@ def run_main_path(device, dis, ddpm, card, dtype, mode: str = "pirorgrad",
             # bf16 against f32 on the same weights and the same initial draw
             x_T = torch.randn((1, BATCH, T_FRAMES, 161, 2), device=device,
                               generator=torch.Generator(device=device).manual_seed(7))
-            f32 = Enhancer(dis, ddpm, mode_config(mode), device=device, sigma=sigma)
+            with spent("setup"):
+                f32 = Enhancer(dis, ddpm, mode_config(mode), device=device, sigma=sigma)
             vs = rel_rms(enh.enhance_batch(wav, x_T=x_T), f32.enhance_batch(wav, x_T=x_T))
             lo, hi = BF16_VS_F32_RMS
             print(f"enhance_batch [{label}] vs f32 on the same weights and x_T: rel RMS "
@@ -934,67 +1007,28 @@ def run_main_path(device, dis, ddpm, card, dtype, mode: str = "pirorgrad",
                   flush=True)
             if err > PATH_RTOL * refmax:
                 fail(f"enhance_batch [{label}] disagrees with its plain-version run")
-
-        gen = torch.Generator(device=device).manual_seed(5)
-        batch = lambda: enh.enhance_batch(wav_dev, gen)
-        ms = cuda_ms(batch, iters=10, warmup=2)
-        if sigma and not deep:
-            print(f"enhance_batch [{label}] batch {BATCH} x {LENGTH // SR} s, fast-6: {ms:.3f} "
-                  f"ms/batch, RTF {BATCH * LENGTH / SR / (ms / 1e3):.1f}x; card {card}",
-                  flush=True)
-            continue
-        with plain_versions():
-            plain_ms = cuda_ms(batch, iters=5, warmup=1)
-        dev = device_ms(batch, calls=3)
-        top, launches = top_kernels(batch)
-        print(f"enhance_batch [{label}] batch {BATCH} x {LENGTH // SR} s, fast-6: {ms:.3f} "
-              f"ms/batch, RTF {BATCH * LENGTH / SR / (ms / 1e3):.1f}x (plain versions "
-              f"{plain_ms:.3f} ms); device {fmt(dev)} ms, {launches} kernel launches a batch; "
-              f"card {card}", flush=True)
-        if not sigma:
-            if deep:
-                layer_times(enh, wav_dev, card, label)
-            print(f"top kernels [{label}] by device ms per batch: " + "; ".join(
-                f"{name} {kernel_ms:.3f} ({n})" for name, kernel_ms, n in top), flush=True)
     return counts
 
 
-def layer_times(enh, wav, card, label: str):
-    """Per-layer times of one batch in the enhancer's dtype and mode: STFT,
-    prior (packed, or a module forward), one chain step, the chain (its
-    steps), ISTFT; device ms from the profiler."""
-    import torch
+def serve_label(dis, mode: str, dtype, sigma: bool) -> str:
+    """The words that name a serving batch in the lines of both scripts."""
+    from prior_diffuse_tpu_torch.models.diffunet import DiffUNet
 
-    from prior_diffuse_tpu_torch.models.fused_forward import fused_unet_forward
-    from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
-    from prior_diffuse_tpu_torch.signal.compress import compress_spec
-
-    c = enh.cfg.diffusion.scale_c
-    steps = enh.sched.num_steps
-    with torch.no_grad():
-        feat = compress_spec(kstft.stft(wav), "sqrt")
-        _, pack_ddpm = enh.packs()
-        prior = lambda: enh.prior(feat)  # noqa: E731 (packed, or the serving copy)
-        x_init = prior() / c
-        cond = enh.conditioner(feat, c, x_init)
-        t = torch.full((BATCH,), float(enh.sched.T[-1]), device=wav.device, dtype=enh.dtype)
-        x = torch.randn_like(x_init)
-        spec = feat.contiguous()
-        step = lambda: fused_unet_forward(pack_ddpm, x, cond, t)
-        times = {"stft": cuda_ms(lambda: kstft.stft(wav)), "prior": cuda_ms(prior, iters=10),
-                 "ddpm_step": cuda_ms(step, iters=10),
-                 "istft": cuda_ms(lambda: kstft.istft(spec, LENGTH))}
-        times["chain"] = steps * times["ddpm_step"]
-        device = {"stft": device_ms(lambda: kstft.stft(wav)), "prior": device_ms(prior),
-                  "ddpm_step": device_ms(step),
-                  "istft": device_ms(lambda: kstft.istft(spec, LENGTH))}
-        device["chain"] = None if device["ddpm_step"] is None else steps * device["ddpm_step"]
-    print(f"layers [{label}] (ms per batch of {BATCH} x {LENGTH // SR} s, CUDA events): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + "; device ms (profiler) "
-          + ", ".join(f"{k} {fmt(v)}" for k, v in device.items()) + f"; card {card}",
-          flush=True)
+    return (("" if isinstance(dis, DiffUNet) else f"{type(dis).__name__} prior, ")
+            + f"{mode}, {'bf16' if str(dtype) == 'torch.bfloat16' else 'f32'}, "
+            + ("sigma" if sigma else "plain"))
 
 
+def serve_path(dis, mode: str, dtype, sigma: bool) -> str:
+    """A serving batch's path name in the ``kernels`` line's launch counts."""
+    from prior_diffuse_tpu_torch.models.diffunet import DiffUNet
+
+    return ("serve_batch" + ("" if isinstance(dis, DiffUNet) else f"_{type(dis).__name__}")
+            + ("" if mode == "pirorgrad" else f"_{mode}")
+            + ("_bf16" if str(dtype) == "torch.bfloat16" else "") + ("_sigma" if sigma else ""))
+
+
+@booked("measure")
 def top_kernels(fn, n: int = 8, calls: int = 2) -> tuple:
     """``([(kernel name, device ms per call, launches per call)], all
     kernel launches per call)``: the ``n`` kernels with the most device
@@ -1045,8 +1079,9 @@ def serve_long(device, nets, card) -> dict:
     enhancer (11 segments of 3 s, 2 blocks) and through its bf16
     ``prior_only_server`` (the prior's module forward on a bf16 copy, as
     the JAX package's: no K3): shapes, finiteness, a seam-free join, the
-    wall time of a first and a second call; returns the launch counts of
-    each first call."""
+    call's wall time (the first: it also casts the prior and picks cuDNN's
+    plans; ``tools/card_numbers.py`` times a second); returns the launch
+    counts."""
     import torch
 
     from prior_diffuse_tpu_torch.config import ExperimentConfig, TrainConfig
@@ -1084,13 +1119,6 @@ def serve_long(device, nets, card) -> dict:
               f"outside: {ratio:.3f} (bound 4); card {card}", flush=True)
         if ratio > 4.0:
             fail(f"{name}: the crossfade joins jump")
-        # the first call also casts the prior and picks cuDNN's plans
-        t0 = time.perf_counter()
-        enhance_long(server, wav, torch.Generator(device=device).manual_seed(9),
-                     segment=segment, overlap=overlap)
-        torch.cuda.synchronize()
-        print(f"{name}: again, {(time.perf_counter() - t0) * 1e3:.1f} ms wall incl. host",
-              flush=True)
     return counts
 
 
@@ -1133,12 +1161,14 @@ def finite(values) -> bool:
     return bool(np.isfinite(np.asarray(list(values), np.float64)).all())
 
 
+@booked("setup")
 def write_train_corpus(root: str) -> str:
     """24 train and 8 test utterances of 3-4 s (speech-like, 0-15 dB SNR)."""
     from prior_diffuse_tpu_torch.data.synthetic import write_corpus_speechlike
 
     return write_corpus_speechlike(os.path.join(root, "corpus"), n_train=CORPUS[0],
-                                   n_test=CORPUS[1], min_len=48000, max_len=64000, seed=8)
+                                   n_test=CORPUS[1], min_len=UTTERANCE_LEN[0],
+                                   max_len=UTTERANCE_LEN[1], seed=8)
 
 
 def train_losses(out) -> list:
@@ -1247,38 +1277,22 @@ def step_through_k1_and_plain(tr, batch) -> None:
           flush=True)
 
 
-def timed_steps(tr, batches, card, iters: int = 10, label: str = "joint, sigma") -> dict:
-    """``iters`` train steps timed with CUDA events after 2 warm-up steps,
+def checked_steps(tr, batches, label: str = "joint, sigma") -> dict:
+    """One train step through K1 on each of ``batches`` in turn (an epoch),
     without the group gradient norms (``train_ddpm`` takes them on 1 step
-    in ``grad_log_every``); returns the launch counts of one step."""
+    in ``grad_log_every``): K1 = 2 launches a step, every loss finite;
+    returns the launch counts of one step.  ``tools/card_numbers.py`` times
+    such steps."""
     import torch
 
-    losses = []
-
-    def step():
-        out = tr._train_step(*batches[len(losses) % len(batches)], norms=False)
-        losses.append(torch.stack(train_losses(out)))
-
     reset_counts()
-    torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(step, iters=iters, warmup=2)
-    peak = torch.cuda.max_memory_allocated()
-    n = len(losses)
-    expect_counts(f"{n} train steps", {"stft": 2 * n, "istft": 0, "enc_stage": 0})
-    if not bool(torch.isfinite(torch.stack(losses)).all()):
-        fail("non-finite train loss")
-    wall = []
-    for i in range(5):  # host clock, each step ending in a scalar readback
-        t0 = time.perf_counter()
-        float(tr._train_step(*batches[i % len(batches)], norms=False)[0])
-        wall.append((time.perf_counter() - t0) * 1e3)
-    rows = batches[0][0].shape[0]
-    dtype = str(getattr(tr, "compute_dtype", torch.float32)).split(".")[-1]
-    print(f"train step [{label}] batch {rows} x {LENGTH}, {dtype}: {ms:.3f} ms/step "
-          f"(CUDA events, mean of {iters}), {rows / (ms / 1e3):.2f} utterances/s, "
-          f"peak memory {peak / 2**20:.1f} MiB; host clock {np.median(wall):.3f} ms/step "
-          f"(median of 5, {min(wall):.3f}-{max(wall):.3f}); losses of the last step "
-          f"{[round(float(v), 5) for v in losses[-1]]}; card {card}", flush=True)
+    losses = torch.stack([torch.stack(train_losses(tr._train_step(*b, norms=False)))
+                          for b in batches])
+    torch.cuda.synchronize()
+    n = len(batches)
+    expect_counts(f"{n} train steps [{label}]", {"stft": 2 * n, "istft": 0, "enc_stage": 0})
+    if not bool(torch.isfinite(losses).all()):
+        fail(f"non-finite train loss [{label}]")
     return {"stft": 2, "istft": 0, "enc_stage": 0}
 
 
@@ -1312,12 +1326,11 @@ def eval_and_kernels(tr, card) -> tuple:
         fail(f"non-finite evaluation: {diag} {ev}")
     batch = next(iter(tr.cv_loader))
     noisy, clean, frames = tr.put_batch(batch.noisy, batch.clean, batch.frame_nums)
-    ms = cuda_ms(lambda: tr._eval_step(noisy, clean, frames), iters=3, warmup=1)
     print(f"evaluate(): cv loss {cv_loss:.5f}, " + ", ".join(
         f"{k[5:]} {diag[k]:.5f}" for k in keys[:4]) + ", " + ", ".join(
         f"{k[10:]} {ev[k]:.3f}" for k in scores) + f" (pesq {ev['pesq_mode']}); "
-        f"{wall / n_cv * 1e3:.1f} ms wall per cv batch incl. host scoring, eval step "
-        f"{ms:.3f} ms (CUDA events) on {tuple(noisy.shape)}; card {card}", flush=True)
+        f"{wall / n_cv * 1e3:.1f} ms wall per cv batch incl. host scoring; card {card}",
+        flush=True)
 
     rows = {}
     feat, label = spec_features(noisy, tr.cfg), spec_features(clean, tr.cfg)
@@ -1352,7 +1365,9 @@ def resume_check(tr, run, exp, batch) -> None:
     from prior_diffuse_tpu_torch.training.ddpm_trainer import ComplexDDPMTrainer
 
     tr.ckpt.save_epoch(tr.epoch, tr.ckpt_payload())
-    fresh = ComplexDDPMTrainer(dataclasses.replace(run, retrain=True), exp, device=tr.device)
+    with spent("setup"):  # fresh: the check is that a new trainer restores the state
+        fresh = ComplexDDPMTrainer(dataclasses.replace(run, retrain=True), exp,
+                                   device=tr.device)
     if (fresh.epoch, fresh.step) != (tr.epoch + 1, tr.step) or not torch.equal(
             fresh.gen.get_state(), tr.gen.get_state()):
         fail("the restored trainer's epoch, step or generator differ")
@@ -1371,10 +1386,7 @@ def resume_check(tr, run, exp, batch) -> None:
 
 def train_phase(device, card, root: str, corpus: str):
     """Phase 5; returns the launch counts of one train step and of one cv
-    batch's evaluation, the kernel rows at the slice's shapes, and all
-    kernel launches of one step (the profiler's count)."""
-    import torch
-
+    batch's evaluation, and the kernel rows at the slice's shapes."""
     from prior_diffuse_tpu_torch.config import RunConfig, load_experiment
     from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
     from prior_diffuse_tpu_torch.training.ddpm_trainer import ComplexDDPMTrainer
@@ -1384,14 +1396,15 @@ def train_phase(device, card, root: str, corpus: str):
         fail(f"conf/diff.yml: batch {exp.train.batch_size} x {exp.train.chunk_length}")
     run = RunConfig(seed=7, joint=True, sigma=True, data_root=corpus,
                     assets=os.path.join(root, "assets"))
-    tr = ComplexDDPMTrainer(run, exp, device=device)
+    with spent("setup"):
+        tr = ComplexDDPMTrainer(run, exp, device=device)
+        batches = [tr.put_batch(b.noisy, b.clean, b.frame_nums) for b in tr.tr_loader]
     n_params = {n: sum(p.numel() for p in m.parameters()) for n, m in tr.nets.items()}
     print(f"trainer: DiffUNet {n_params['dis']:,} + DiffUNet1 {n_params['ddpm']:,} "
           f"parameters, batch {TRAIN_BATCH} x {LENGTH}, lr {exp.optim.lr:g} / "
           f"{exp.optim_ddpm.lr:g}, joint, sigma", flush=True)
     if n_params != PARAMS:
         fail(f"parameter counts {n_params}, expected {PARAMS}")
-    batches = [tr.put_batch(b.noisy, b.clean, b.frame_nums) for b in tr.tr_loader]
     if len(batches) != CORPUS[0] // TRAIN_BATCH:
         fail(f"{len(batches)} train batches")
 
@@ -1403,13 +1416,11 @@ def train_phase(device, card, root: str, corpus: str):
                      "ms": cuda_ms(lambda: kstft.stft(noisy)),
                      "plain_ms": cuda_ms(lambda: kstft.stft_plain(noisy))}}
     step_through_k1_and_plain(tr, batches[0])
-    step_counts = timed_steps(tr, batches, card)
-    step_launches = step_profile(tr, batches[0], f"f32, joint, sigma, batch {TRAIN_BATCH}",
-                                 card)
+    step_counts = checked_steps(tr, batches)
     eval_counts, eval_rows = eval_and_kernels(tr, card)
     rows.update(eval_rows)
     resume_check(tr, run, exp, batches[1])
-    return step_counts, eval_counts, rows, step_launches
+    return step_counts, eval_counts, rows
 
 
 def cli_phase(root: str, corpus: str, card) -> tuple:
@@ -1511,9 +1522,9 @@ def bf16_card_vs_cpu(device, dis, denoisers, bound: float = None, what: str = ""
 
 def train_mode_phase(device, card, root: str, corpus: str, mode: str) -> tuple:
     """Phase 7c: phase 5's trainer (``conf/diff.yml``, ``--joint --sigma``)
-    in ``mode``: the K1 step against the plain-STFT step, 5 timed steps,
-    one ``evaluate()`` cv batch; returns the launch counts of one step and
-    of the evaluation."""
+    in ``mode``: the K1 step against the plain-STFT step, a step on each
+    train batch, one ``evaluate()`` cv batch; returns the launch counts of
+    one step and of the evaluation."""
     import torch
 
     from prior_diffuse_tpu_torch.config import RunConfig, load_experiment
@@ -1526,16 +1537,17 @@ def train_mode_phase(device, card, root: str, corpus: str, mode: str) -> tuple:
         fail(f"the config's mode is {diffusion_mode(exp.diffusion)}, not {mode}")
     run = RunConfig(seed=7, joint=True, sigma=True, data_root=corpus,
                     assets=os.path.join(root, f"assets_{mode}"))
-    tr = ComplexDDPMTrainer(run, exp, device=device)
+    with spent("setup"):
+        tr = ComplexDDPMTrainer(run, exp, device=device)
+        batches = [tr.put_batch(b.noisy, b.clean, b.frame_nums) for b in tr.tr_loader]
     n_params = {n: sum(p.numel() for p in m.parameters()) for n, m in tr.nets.items()}
     want = {"dis": PARAMS["dis"], "ddpm": NOCON_PARAMS if mode == "deltamu" else PARAMS["ddpm"]}
     print(f"trainer [{mode}]: DiffUNet {n_params['dis']:,} + {type(tr.ddpm).__name__} "
           f"{n_params['ddpm']:,} parameters, joint, sigma", flush=True)
     if n_params != want:
         fail(f"parameter counts {n_params}, expected {want}")
-    batches = [tr.put_batch(b.noisy, b.clean, b.frame_nums) for b in tr.tr_loader]
     step_through_k1_and_plain(tr, batches[0])
-    step_counts = timed_steps(tr, batches, card, iters=5, label=f"{mode}, joint, sigma")
+    step_counts = checked_steps(tr, batches, f"{mode}, joint, sigma")
     n_cv = len(tr.cv_loader)
     reset_counts()
     t0 = time.perf_counter()
@@ -1553,6 +1565,7 @@ def train_mode_phase(device, card, root: str, corpus: str, mode: str) -> tuple:
     return step_counts, eval_counts
 
 
+@booked("setup")
 def prior_nets(device) -> dict:
     """Phase 8: the five non-DiffUNet families at full width with seeded
     weights, their parameter counts held to the reference oracle; returns
@@ -1643,6 +1656,7 @@ def trainer_of(name: str) -> str:
     return "MagTrainer" if name == "GRN" else "ComplexTrainer"
 
 
+@booked("setup")
 def complex_trainer(device, name, net, root, corpus, tag="", bf16: bool = False):
     """The trainer (:func:`trainer_of`) of the prior's yml on the corpus
     (with ``bf16``, training in bf16 compute), holding ``net``'s weights."""
@@ -1659,19 +1673,17 @@ def complex_trainer(device, name, net, root, corpus, tag="", bf16: bool = False)
     return tr
 
 
-def complex_serving(device, card, name, tr) -> dict:
+def complex_serving(device, name, tr) -> dict:
     """Phase 8b (9b for GRN): ``ComplexTrainer.enhance_batch`` (or
     ``MagTrainer``'s) on the batch of phase 3 through the kernels against
-    the plain versions, launch counts K1 = 1, K2 = 1, K3 = 0, CUDA-event
-    ms, device ms, launches and top kernels; then five requests through
-    ``enhance_files``."""
+    the plain versions, launch counts K1 = 1, K2 = 1, K3 = 0; then five
+    requests through ``enhance_files``."""
     import torch
 
     from prior_diffuse_tpu_torch.serving.enhance import enhance_files
 
     trainer = type(tr).__name__
     wav = speechlike(BATCH, LENGTH, 3)
-    wav_dev = torch.from_numpy(wav).to(device)
     reset_counts()
     out = tr.enhance_batch(wav)
     torch.cuda.synchronize()
@@ -1688,17 +1700,6 @@ def complex_serving(device, card, name, tr) -> dict:
           flush=True)
     if err > PATH_RTOL * refmax:
         fail(f"{trainer}.enhance_batch [{name}] disagrees with its plain-version run")
-    batch = lambda: tr.enhance_batch(wav_dev)
-    ms = cuda_ms(batch, iters=10, warmup=2)
-    with plain_versions():
-        plain_ms = cuda_ms(batch, iters=3, warmup=1)
-    dev = device_ms(batch, calls=3)
-    top, launches = top_kernels(batch)
-    print(f"{trainer}.enhance_batch [{name}, f32] batch {BATCH} x {LENGTH // SR} s: "
-          f"{ms:.3f} ms/batch, RTF {BATCH * LENGTH / SR / (ms / 1e3):.1f}x (plain versions "
-          f"{plain_ms:.3f} ms); device {fmt(dev)} ms, {launches} kernel launches a batch; "
-          f"top kernels by device ms per batch: " + "; ".join(
-              f"{k} {kms:.3f} ({n})" for k, kms, n in top) + f"; card {card}", flush=True)
     lengths = [16000, 23456, 40000, 64000, 31234]
     wavs = [0.1 * speechlike(1, n, 10 + i)[0] for i, n in enumerate(lengths)]
     t0 = time.perf_counter()
@@ -1725,8 +1726,9 @@ def prior_ddpm_phase(device, card, root, corpus, name, net, ddpm) -> dict:
     from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
     from prior_diffuse_tpu_torch.training.ddpm_trainer import ComplexDDPMTrainer
 
-    paths = run_main_path(device, net, ddpm, card, torch.float32, deep=False)
-    server = prior_only_server(Enhancer(net, ddpm, mode_config("pirorgrad"), device=device))
+    paths = run_main_path(device, net, ddpm, torch.float32)
+    with spent("setup"):
+        server = prior_only_server(Enhancer(net, ddpm, mode_config("pirorgrad"), device=device))
     reset_counts()
     out = server.enhance_batch(speechlike(BATCH, LENGTH, 3))
     torch.cuda.synchronize()
@@ -1739,11 +1741,12 @@ def prior_ddpm_phase(device, card, root, corpus, name, net, ddpm) -> dict:
     exp = dataclasses.replace(exp, model=dataclasses.replace(exp.model, name=name))
     run = RunConfig(seed=7, joint=True, sigma=True, data_root=corpus,
                     assets=os.path.join(root, f"assets_ddpm_{name}"))
-    tr = ComplexDDPMTrainer(run, exp, device=device)
+    with spent("setup"):
+        tr = ComplexDDPMTrainer(run, exp, device=device)
+        batch = next(iter(tr.tr_loader))
+        batch = tr.put_batch(batch.noisy, batch.clean, batch.frame_nums)
     if type(tr.dis).__name__ != type(net).__name__:
         fail(f"the DDPM trainer's prior is {type(tr.dis).__name__}")
-    batch = next(iter(tr.tr_loader))
-    batch = tr.put_batch(batch.noisy, batch.clean, batch.frame_nums)
     reset_counts()
     t0 = time.perf_counter()
     losses = train_losses(tr._train_step(*batch))
@@ -1773,19 +1776,19 @@ def prior_ddpm_phase(device, card, root, corpus, name, net, ddpm) -> dict:
 def complex_train_phase(device, card, root, corpus, name, net) -> dict:
     """Phase 8d (9c for GRN): ``ComplexTrainer`` (``MagTrainer``) of the
     prior's yml at its width: the K1 step against the plain-STFT step (the
-    wrong window rejected), 5 timed steps, ``evaluate()``; returns the
-    launch counts of a step and of the evaluation."""
+    wrong window rejected), a step on each train batch, ``evaluate()``;
+    returns the launch counts of a step and of the evaluation."""
     import torch
 
     tr = complex_trainer(device, name, net, root, corpus, tag="_train")
     trainer, kind = type(tr).__name__, "mag" if name == "GRN" else "complex"
-    batches = [tr.put_batch(b.noisy, b.clean, b.frame_nums) for b in tr.tr_loader]
+    with spent("setup"):
+        batches = [tr.put_batch(b.noisy, b.clean, b.frame_nums) for b in tr.tr_loader]
     rows = PRIOR_CONFS[name][1]
     if len(batches) != CORPUS[0] // rows or batches[0][0].shape != (rows, LENGTH):
         fail(f"{len(batches)} train batches of {tuple(batches[0][0].shape)}")
     step_through_k1_and_plain(tr, batches[0])
-    counts = {f"train_step_{kind}_{name}": timed_steps(tr, batches, card, iters=5,
-                                                       label=f"{trainer}, {name}")}
+    counts = {f"train_step_{kind}_{name}": checked_steps(tr, batches, f"{trainer}, {name}")}
     n_cv = len(tr.cv_loader)
     cv_rows = [len(b.frame_nums) for b in tr.cv_loader]
     print(f"{trainer} [{name}]: cv batches of {cv_rows} utterances", flush=True)
@@ -1878,13 +1881,14 @@ def prior_phase(device, card, root, corpus, ddpm, priors) -> dict:
     paths = {}
     for name, net in priors.items():
         tr = complex_trainer(device, name, net, root, corpus)
-        paths[f"serve_batch_complex_{name}"] = complex_serving(device, card, name, tr)
+        paths[f"serve_batch_complex_{name}"] = complex_serving(device, name, tr)
         paths.update(prior_ddpm_phase(device, card, root, corpus, name, net, ddpm))
         paths.update(complex_train_phase(device, card, root, corpus, name, net))
         paths.update(complex_cli_phase(root, corpus, name, card))
     return paths
 
 
+@booked("setup")
 def grn_corpus(root: str, corpus: str) -> str:
     """Phase 5's corpus with GRN_TEST - CORPUS[1] more test utterances."""
     import shutil
@@ -1896,26 +1900,25 @@ def grn_corpus(root: str, corpus: str) -> str:
     shutil.copytree(corpus, out)
     rng = np.random.default_rng(9)
     for i in range(CORPUS[1], GRN_TEST):
-        noisy, clean = make_speechlike(rng, int(rng.integers(48000, 64000)), SR,
+        noisy, clean = make_speechlike(rng, int(rng.integers(*UTTERANCE_LEN)), SR,
                                        float(rng.uniform(0.0, 15.0)))
         for kind, wav in (("noisy", noisy), ("clean", clean)):
             write_wav(os.path.join(out, f"{kind}_testset_wav", f"ste_{i:03d}.wav"), wav, SR)
     return out
 
 
-def grn_phase(device, card, root: str, corpus: str) -> dict:
-    """Phase 9a-d: GRN at full width with seeded weights (its parameter
-    count; its forward on the card against the CPU at [8, 301, 161]), then
-    ``MagTrainer`` of ``conf/grn.yml``: its serving batch (K1 = 1, K2 = 1),
-    training at 8 x 48000 (the K1 step against the plain-STFT step, the
-    wrong window rejected, 5 timed steps, ``evaluate()`` with a ragged last
-    cv batch), and ``cli.main --trainer MagTrainer`` for one epoch and
-    ``--generate``; returns the launch counts of its paths."""
+def grn_phase(device, card, root: str, corpus: str, net) -> dict:
+    """Phase 9a-d: GRN at full width with seeded weights (``net``, of
+    :func:`grn_net`; its parameter count; its forward on the card against
+    the CPU at [8, 301, 161]), then ``MagTrainer`` of ``conf/grn.yml``: its
+    serving batch (K1 = 1, K2 = 1), training at 8 x 48000 (the K1 step
+    against the plain-STFT step, the wrong window rejected, a step on each
+    train batch, ``evaluate()`` with a ragged last cv batch), and
+    ``cli.main --trainer MagTrainer`` for one epoch and ``--generate``;
+    returns the launch counts of its paths.  The trainers load copies of
+    ``net``'s weights: ``net`` itself stays as seeded."""
     import torch
 
-    from prior_diffuse_tpu_torch.models.grn import GRN
-
-    net = seeded_nets(60, device, (GRN,))[0]
     n = sum(p.numel() for p in net.parameters())
     print(f"GRN: {n:,} parameters (reference {GRN_PARAMS:,})", flush=True)
     if n != GRN_PARAMS:
@@ -1924,15 +1927,23 @@ def grn_phase(device, card, root: str, corpus: str) -> dict:
     card_vs_cpu(device, [("GRN forward", net, (torch.rand(BATCH, T_FRAMES, 161, generator=g),))])
     corpus = grn_corpus(root, corpus)
     tr = complex_trainer(device, "GRN", net, root, corpus)
-    paths = {"serve_batch_mag_GRN": complex_serving(device, card, "GRN", tr)}
+    paths = {"serve_batch_mag_GRN": complex_serving(device, "GRN", tr)}
     paths.update(complex_train_phase(device, card, root, corpus, "GRN", net))
     paths.update(complex_cli_phase(root, corpus, "GRN", card, n_test=GRN_TEST))
     return paths
 
 
-def diffwave_phase(device, card) -> None:
+@booked("setup")
+def grn_net(device):
+    """Phase 9's GRN (``conf/grn.yml``'s model) at full width, seeded."""
+    from prior_diffuse_tpu_torch.models.grn import GRN
+
+    return seeded_nets(60, device, (GRN,))[0]
+
+
+def diffwave_phase(device) -> None:
     """Phase 9e: DiffWave at its default width (64 channels, 30 layers),
-    seeded, on the card against the CPU at [2, 48000]; its forward's time."""
+    seeded, on the card against the CPU at [2, 48000]."""
     import torch
 
     from prior_diffuse_tpu_torch.models.diffwave import DiffWave
@@ -1944,13 +1955,9 @@ def diffwave_phase(device, card) -> None:
     print(f"DiffWave: {sum(p.numel() for p in net.parameters()):,} parameters, "
           f"{net.residual_layers} layers", flush=True)
     card_vs_cpu(device, [("DiffWave forward", net, args)])
-    on_card = [a.to(device) for a in args]
-    ms = cuda_ms(lambda: net(*on_card), iters=5, warmup=1)
-    print(f"DiffWave forward [2, {LENGTH}], f32: {ms:.3f} ms (CUDA events); device "
-          f"{fmt(device_ms(lambda: net(*on_card), calls=2))} ms; card {card}", flush=True)
 
 
-def bf16_prior_phase(device, card, priors, ddpm) -> dict:
+def bf16_prior_phase(device, priors, ddpm) -> dict:
     """Phase 9f: each of BF16_PRIORS served in bf16 as the JAX package serves
     it (its serving copy): ``prior_only_server`` in bf16 (K1 = 1, K2 = 1)
     against the plain versions and against f32 on the same weights; the
@@ -1963,12 +1970,13 @@ def bf16_prior_phase(device, card, priors, ddpm) -> dict:
     from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
 
     wav = speechlike(BATCH, LENGTH, 3)
-    wav_dev = torch.from_numpy(wav).to(device)
     paths = {}
     for name in BF16_PRIORS:
         net = priors[name]
-        enh = Enhancer(net, ddpm, mode_config("pirorgrad"), device=device, dtype=torch.bfloat16)
-        server = prior_only_server(enh)
+        with spent("setup"):
+            enh = Enhancer(net, ddpm, mode_config("pirorgrad"), device=device,
+                           dtype=torch.bfloat16)
+            server = prior_only_server(enh)
         reset_counts()
         out = server.enhance_batch(wav)
         torch.cuda.synchronize()
@@ -1986,14 +1994,7 @@ def bf16_prior_phase(device, card, priors, ddpm) -> dict:
             fail(f"prior_only_server [{name}, bf16] disagrees with its plain-version run")
         if not lo <= vs <= hi:
             fail(f"prior_only_server [{name}, bf16] is {vs:.3e} from f32")
-        batch = lambda: server.enhance_batch(wav_dev)  # noqa: E731
-        ms = cuda_ms(batch, iters=10, warmup=2)
-        top, launches = top_kernels(batch)
-        print(f"prior_only_server [{name}, bf16] batch {BATCH} x {LENGTH // SR} s: {ms:.3f} "
-              f"ms/batch; device {fmt(device_ms(batch, calls=3))} ms, {launches} kernel "
-              f"launches a batch; top kernels: " + "; ".join(
-                  f"{k} {kms:.3f} ({n})" for k, kms, n in top) + f"; card {card}", flush=True)
-        paths.update(run_main_path(device, net, ddpm, card, torch.bfloat16, deep=False))
+        paths.update(run_main_path(device, net, ddpm, torch.bfloat16))
         bf16_card_vs_cpu(device, net, {"pirorgrad": ddpm}, BF16_PRIOR_CARD_VS_CPU_RMS[name],
                          f"{name} prior, ")
     return paths
@@ -2032,24 +2033,6 @@ def held(label: str, dist: dict, loss_rtol: float, grad_rtol: float) -> list:
 
 
 @contextmanager
-def stft_times(noise_seed: int):
-    """The plain STFT times ``1 + 1e-7 N(0, 1)``: a float32 rounding change."""
-    import torch
-
-    from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
-
-    plain = kstft.stft_plain
-
-    def perturbed(wav):
-        s = plain(wav)
-        g = torch.Generator(device=s.device).manual_seed(noise_seed)
-        return s * (1 + 1e-7 * torch.randn(s.shape, generator=g, device=s.device))
-
-    with mock.patch.object(kstft, "stft", perturbed):
-        yield
-
-
-@contextmanager
 def k1_defect(kind):
     """K1 launched on its table with a defect of its window: ``"symmetric
     Hann window"`` (0.6 % of the spectrum), or the window scaled by
@@ -2074,10 +2057,11 @@ def k1_defect(kind):
 
 
 def bf16_step_through_k1_and_plain(tr, batch, label: str) -> dict:
-    """From one state: the bf16 step through K1, through the plain STFT,
-    through the plain STFT perturbed at float32's rounding (twice, printed:
-    the floor), and through K1 with the control's defect, which the check
-    must reject.  Returns the K1 step (:func:`one_step`)."""
+    """From one state: the bf16 step through K1, through the plain STFT, and
+    through K1 with the control's defect, which the check must reject
+    (``tools/card_numbers.py`` prints the floor beside them: the plain STFT
+    perturbed at float32's rounding).  Returns the K1 step
+    (:func:`one_step`)."""
     snap = copy.deepcopy(tr.ckpt_payload())
 
     def run(ctx=None, plain=False):
@@ -2091,10 +2075,6 @@ def bf16_step_through_k1_and_plain(tr, batch, label: str) -> dict:
     got = run()
     expect_counts(f"one bf16 train step [{label}]", {"stft": 2})
     ref = run(plain=True)
-    for seed in (1, 2):
-        held(f"bf16 step [{label}]: plain STFT x (1 + 1e-7 N) (seed {seed}) vs plain",
-             step_distance(tr, run(stft_times(seed)), ref), BF16_STEP_LOSS_RTOL,
-             BF16_STEP_GRAD_RTOL)
     misses = held(f"bf16 step [{label}]: K1 vs plain STFT", step_distance(tr, got, ref),
                   BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL)
     if misses:
@@ -2120,11 +2100,12 @@ def bf16_step_card_vs_cpu(device, exp, run) -> None:
 
     small = dataclasses.replace(exp, train=dataclasses.replace(
         exp.train, batch_size=2, chunk_length=CARD_VS_CPU_LENGTH))
-    trainers = [ComplexDDPMTrainer(dataclasses.replace(run, assets=f"{run.assets}_{d}"),
-                                   small, device=d) for d in (device, "cpu")]
-    for n, net in trainers[1].nets.items():
-        trainers[0].nets[n].load_state_dict(net.state_dict())
-    b = next(iter(trainers[1].tr_loader))
+    with spent("setup"):
+        trainers = [ComplexDDPMTrainer(dataclasses.replace(run, assets=f"{run.assets}_{d}"),
+                                       small, device=d) for d in (device, "cpu")]
+        for n, net in trainers[1].nets.items():
+            trainers[0].nets[n].load_state_dict(net.state_dict())
+        b = next(iter(trainers[1].tr_loader))
     g = torch.Generator().manual_seed(12)
     draws = Draws(torch.randint(0, trainers[1].num_steps, (2,), generator=g),
                   torch.randn((2, CARD_VS_CPU_LENGTH // 160 + 1, 161, 2), generator=g))
@@ -2143,26 +2124,14 @@ def bf16_step_card_vs_cpu(device, exp, run) -> None:
         fail(f"bf16 step card vs CPU: {', '.join(misses)} disagree")
 
 
-def step_profile(tr, batch, label: str, card) -> int:
-    """Device ms and kernel launches of one train step (no group norms);
-    returns the launches."""
-    step = lambda: tr._train_step(*batch, norms=False)
-    dev = device_ms(step, calls=3)
-    top, launches = top_kernels(step)
-    print(f"train step [{label}]: device {fmt(dev)} ms, {launches} kernel launches a step; "
-          f"top kernels by device ms per step: " + "; ".join(
-              f"{k} {kms:.3f} ({n})" for k, kms, n in top) + f"; card {card}", flush=True)
-    return launches
-
-
 def bf16_ddpm_phase(device, card, root: str, corpus: str) -> dict:
     """Phase 10a: ``conf/diff.yml`` trained in bf16 compute, ``--joint
     --sigma``, batch 6 x 48000: the K1 step against the plain-STFT step
     (the control rejected), against the f32 step on the same weights,
-    batch and draws, and on the card against the CPU; 10 timed steps of
-    each dtype in turns with their device ms and launches; ``evaluate()``
-    (the bf16-compute path: K1 and K2, no K3); a checkpoint restored into a
-    fresh trainer; ``cli.main`` for one epoch and ``--generate``."""
+    batch and draws, and on the card against the CPU; a step of each
+    dtype on each train batch; ``evaluate()`` (the bf16-compute path: K1
+    and K2, no K3); a checkpoint restored into a fresh trainer; ``cli.main``
+    for one epoch and ``--generate``."""
     import torch
 
     from prior_diffuse_tpu_torch import cli
@@ -2175,14 +2144,16 @@ def bf16_ddpm_phase(device, card, root: str, corpus: str) -> dict:
     exp = bf16_exp(exp32)
     run = RunConfig(seed=7, joint=True, sigma=True, data_root=corpus,
                     assets=os.path.join(root, "assets_bf16"))
-    tr = ComplexDDPMTrainer(run, exp, device=device)
+    with spent("setup"):
+        tr = ComplexDDPMTrainer(run, exp, device=device)
+        batches = [tr.put_batch(b.noisy, b.clean, b.frame_nums) for b in tr.tr_loader]
     if not (tr.compute_dtype == torch.bfloat16 and tr.fused_train
             and isinstance(tr.enhancer, ComputeEnhancer)):
         fail("the bf16 trainer does not train in bf16 through the dual forward")
-    batches = [tr.put_batch(b.noisy, b.clean, b.frame_nums) for b in tr.tr_loader]
     got = bf16_step_through_k1_and_plain(tr, batches[0], "DDPM, conf/diff.yml")
-    tr32 = ComplexDDPMTrainer(dataclasses.replace(run, assets=run.assets + "_f32"), exp32,
-                              device=device)
+    with spent("setup"):  # fresh: the f32 step from the bf16 trainer's initial weights
+        tr32 = ComplexDDPMTrainer(dataclasses.replace(run, assets=run.assets + "_f32"), exp32,
+                                  device=device)
     ref32 = one_step(tr32, batches[0])  # the same initial weights and draws
     dist = step_distance(tr, got, ref32)
     lo, hi = BF16_VS_F32_STEP_GRAD
@@ -2194,18 +2165,14 @@ def bf16_ddpm_phase(device, card, root: str, corpus: str) -> dict:
         fail("the bf16 step is not near the f32 step, or equal to it")
     bf16_step_card_vs_cpu(device, exp, run)
 
-    paths = {}
-    for t, label in ((tr32, "f32"), (tr, "bf16"), (tr, "bf16"), (tr32, "f32")):
-        counts = timed_steps(t, batches, card, label=f"{label}, joint, sigma")
-    paths["train_step_bf16"] = counts
+    checked_steps(tr32, batches, "f32, joint, sigma")
+    paths = {"train_step_bf16": checked_steps(tr, batches, "bf16, joint, sigma")}
     for n, opt in tr.opts.items():
         if not opt.state or not all(s["exp_avg"].dtype == s["exp_avg_sq"].dtype == torch.float32
                                     for s in opt.state.values()):
             fail(f"{n}: Adam state not float32")
     if not all(p.dtype == torch.float32 for m in tr.nets.values() for p in m.parameters()):
         fail("bf16 training changed the parameters' dtype")
-    for t, label in ((tr32, "f32"), (tr, "bf16")):
-        step_profile(t, batches[0], f"{label}, joint, sigma, batch {TRAIN_BATCH}", card)
     del tr32
 
     n_cv = len(tr.cv_loader)
@@ -2218,12 +2185,8 @@ def bf16_ddpm_phase(device, card, root: str, corpus: str) -> dict:
         f"bf16 evaluate() over {n_cv} cv batch(es)", {"stft": 2 * n_cv, "istft": 2 * n_cv})
     if not finite([cv_loss]):
         fail("non-finite bf16 evaluation")
-    b = next(iter(tr.cv_loader))
-    noisy, clean, frames = tr.put_batch(b.noisy, b.clean, b.frame_nums)
-    ms = cuda_ms(lambda: tr._eval_step(noisy, clean, frames), iters=3, warmup=1)
     print(f"bf16 evaluate(): cv loss {cv_loss:.5f}; {wall / n_cv * 1e3:.1f} ms wall per cv "
-          f"batch incl. host scoring, eval step {ms:.3f} ms (CUDA events); card {card}",
-          flush=True)
+          f"batch incl. host scoring; card {card}", flush=True)
     resume_check(tr, run, exp, batches[1])
 
     with open(os.path.join(ROOT, "conf", "diff.yml")) as f:
@@ -2268,9 +2231,9 @@ def bf16_ddpm_phase(device, card, root: str, corpus: str) -> dict:
 def bf16_prior_train_phase(device, card, root: str, corpus: str, priors: dict) -> dict:
     """Phase 10b: ``ComplexTrainer`` (GCRN at 8 x 48000,
     ``aia_complex_trans_ri`` at 4 x 48000) and ``MagTrainer`` (GRN at 8 x
-    48000) in bf16 compute: the K1 step against the plain-STFT step, 5 timed
-    steps with peak memory, and ``enhance_batch`` on the batch of phase 3
-    (K1 = 1, K2 = 1)."""
+    48000) in bf16 compute: the K1 step against the plain-STFT step, a step
+    on each train batch, and ``enhance_batch`` on the batch of phase 3 (K1 =
+    1, K2 = 1)."""
     import torch
 
     paths = {}
@@ -2280,10 +2243,11 @@ def bf16_prior_train_phase(device, card, root: str, corpus: str, priors: dict) -
         trainer, kind = type(tr).__name__, "mag" if name == "GRN" else "complex"
         if tr.compute_dtype != torch.bfloat16 or tr.model_train is tr.model:
             fail(f"{trainer} [{name}] does not train in bf16")
-        batches = [tr.put_batch(b.noisy, b.clean, b.frame_nums) for b in tr.tr_loader]
+        with spent("setup"):
+            batches = [tr.put_batch(b.noisy, b.clean, b.frame_nums) for b in tr.tr_loader]
         bf16_step_through_k1_and_plain(tr, batches[0], f"{trainer}, {name}")
-        paths[f"train_step_bf16_{kind}_{name}"] = timed_steps(
-            tr, batches, card, iters=5, label=f"{trainer}, {name}, bf16")
+        paths[f"train_step_bf16_{kind}_{name}"] = checked_steps(
+            tr, batches, f"{trainer}, {name}, bf16")
         reset_counts()
         out = tr.enhance_batch(wav)
         torch.cuda.synchronize()
@@ -2292,10 +2256,6 @@ def bf16_prior_train_phase(device, card, root: str, corpus: str, priors: dict) -
         if out.shape != (BATCH, LENGTH) or out.dtype != torch.float32 or not bool(
                 torch.isfinite(out).all()):
             fail(f"{trainer}.enhance_batch [{name}, bf16]: {tuple(out.shape)} {out.dtype}")
-        wav_dev = torch.from_numpy(wav).to(device)
-        ms = cuda_ms(lambda: tr.enhance_batch(wav_dev), iters=5, warmup=1)
-        print(f"{trainer}.enhance_batch [{name}, bf16-trained] batch {BATCH} x "
-              f"{LENGTH // SR} s: {ms:.3f} ms/batch; card {card}", flush=True)
     return paths
 
 
@@ -2331,8 +2291,8 @@ def native_batch_np(ds, idx, starts):
 def native_loader_check(corpus: str, card) -> None:
     """Phase 11a: the native train loader (the trainers' default) builds,
     serves every batch of an epoch at 6 x 48000, and its batches equal the
-    numpy re-derivation of its crops bit for bit; the native and the
-    Python path's ms a batch."""
+    numpy re-derivation of its crops bit for bit; its ms a batch (the
+    Python path's is ``tools/card_numbers.py``'s)."""
     from prior_diffuse_tpu_torch.data.dataset import PairedWavDataset, TrainLoader
     from prior_diffuse_tpu_torch.runtime import native
 
@@ -2340,14 +2300,12 @@ def native_loader_check(corpus: str, card) -> None:
         fail("the native runtime did not build or load (g++)")
     ds = PairedWavDataset(f"{corpus}/noisy_trainset_wav", f"{corpus}/clean_trainset_wav",
                           chunk_length=LENGTH)
-    seed, ms = 11, {}
-    for use_native in (True, False):
-        loader = TrainLoader(ds, TRAIN_BATCH, seed=seed, native=use_native)
-        t0 = time.perf_counter()
-        batches = list(loader)
-        ms[use_native] = (time.perf_counter() - t0) * 1e3 / len(batches)
-        if use_native:
-            got, served = batches, loader.native_batches
+    seed = 11
+    loader = TrainLoader(ds, TRAIN_BATCH, seed=seed)
+    t0 = time.perf_counter()
+    got = list(loader)
+    ms = (time.perf_counter() - t0) * 1e3 / max(len(got), 1)
+    served = loader.native_batches
     n = CORPUS[0] // TRAIN_BATCH
     if len(got) != n or served != n:
         fail(f"the native loader served {served} of {len(got)} batches, expected {n} of {n}")
@@ -2362,8 +2320,8 @@ def native_loader_check(corpus: str, card) -> None:
                 fail(f"native batch {k}: {f} differs from the numpy re-derivation")
     print(f"native train loader: {native.library_path().name}, {n} of {n} batches of "
           f"{TRAIN_BATCH} x {LENGTH} served natively, equal to the numpy re-derivation bit "
-          f"for bit; {ms[True]:.2f} ms a batch native, {ms[False]:.2f} ms on the Python "
-          f"path (host clock, one epoch, prefetch thread included); card {card}", flush=True)
+          f"for bit; {ms:.2f} ms a batch (host clock, one epoch, prefetch thread included); "
+          f"card {card}", flush=True)
 
 
 def trace_steps(trace_dir: str) -> tuple:
@@ -2392,21 +2350,15 @@ def trace_steps(trace_dir: str) -> tuple:
     return [name for name, _ in kernels], per_step, calls, copies
 
 
-def tooling_phase(device, card, root: str, corpus: str, step_launches: int) -> dict:
+def tooling_phase(device, card, root: str, corpus: str) -> dict:
     """Phase 11: the native train loader, the CLI with ``--profile-steps``
     (in a process of its own), ``--draw`` (its eval batch and ``spec_db``
     on the card; the figures need matplotlib, which this machine may not
     have, so the figure call is replaced by a recorder) and the
     ``metrics.compare`` command line; returns the launch counts of the draw
-    batch."""
-    import re
-
-    import torch
-
-    from prior_diffuse_tpu_torch import cli, viz
-
-    native_loader_check(corpus, card)
-
+    batch.  The two command lines run in processes of their own while this
+    one checks the native loader and ``--draw``; every process it starts is
+    gone when it returns or fails."""
     with open(os.path.join(ROOT, "conf", "diff.yml")) as f:
         text = f.read()
     conf = os.path.join(root, "diff_1_epoch.yml")
@@ -2416,15 +2368,40 @@ def tooling_phase(device, card, root: str, corpus: str, step_launches: int) -> d
     args = ["--config", conf, "--joint", "--sigma", "--data-root", corpus, "--assets",
             assets, "--seed", "11"]
     traced = 2
+    ref, deg = os.path.join(corpus, "clean_testset_wav"), os.path.join(root, "cli", "wav", "diff")
+    log = lambda name, kind: os.path.join(root, f"{name}.{kind}")  # noqa: E731
     # a process of its own, as a user runs it: in this long-lived process,
     # after many profiler sessions, torch.profiler once lost kernel records
     # of a trace's first step (PERF.md)
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "prior_diffuse_tpu_torch.cli", *args,
-                           "--profile-steps", str(traced)], cwd=ROOT, capture_output=True,
-                          text=True, timeout=900, env={**os.environ, "PYTHONPATH": ROOT})
-    if proc.returncode != 0:
-        fail(f"cli --profile-steps: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    procs = [run_session([sys.executable, "-m", "prior_diffuse_tpu_torch.cli", *args,
+                          "--profile-steps", str(traced)], log("profile", "out"), 900,
+                         log("profile", "err")),
+             run_session([sys.executable, "-m", "prior_diffuse_tpu_torch.metrics.compare", ref,
+                          deg], log("compare", "out"), 600, log("compare", "err"))]
+    try:
+        paths = tooling_checks(device, card, corpus, args, assets, traced, procs, t0)
+    finally:
+        kill_sessions(procs)
+    return paths
+
+
+def tooling_checks(device, card, corpus: str, args: list, assets: str, traced: int,
+                   procs: list, t0: float) -> dict:
+    """Phase 11's checks while its two command lines (``procs``: the
+    ``--profile-steps`` run, the compare, started at ``t0``) run; returns
+    the launch counts of the draw batch."""
+    import re
+
+    import torch
+
+    from prior_diffuse_tpu_torch import cli, viz
+
+    native_loader_check(corpus, card)
+    profile, compare = procs
+    (code,) = finish_sessions([profile])
+    if code != 0:
+        fail(f"cli --profile-steps: exit {code}\n{tail(profile.err_path, 3000)}")
     wall = time.perf_counter() - t0
     kernels, per_step, calls, copies = trace_steps(os.path.join(assets, "log", "diff", "trace"))
     steps = [r for r in metric_records(os.path.join(assets, "log", "diff")) if "loss_sum" in r]
@@ -2439,9 +2416,8 @@ def tooling_phase(device, card, root: str, corpus: str, step_launches: int) -> d
     print(f"python -m prior_diffuse_tpu_torch.cli ... --profile-steps {traced} ({wall:.1f} s "
           f"wall, one epoch): the trace holds {len(kernels)} kernel launches, one record for "
           f"each launch call, {per_step} in its {traced} steps (step 0 also takes the group "
-          f"gradient norms), K1 {k1}, and {copies} memsets and copies; phase 5's profiler: "
-          f"{step_launches} a step without the norms, memsets and copies included; card "
-          f"{card}", flush=True)
+          f"gradient norms), K1 {k1}, and {copies} memsets and copies (tools/card_numbers.py "
+          f"counts a step without the norms by the profiler); card {card}", flush=True)
     paths = {}
 
     drawn = []
@@ -2477,14 +2453,13 @@ def tooling_phase(device, card, root: str, corpus: str, step_launches: int) -> d
     if worst_mag > KERNEL_RTOL:
         fail("spec_db on the card is off the CPU's")
 
-    ref, deg = os.path.join(corpus, "clean_testset_wav"), os.path.join(root, "cli", "wav", "diff")
-    proc = subprocess.run([sys.executable, "-m", "prior_diffuse_tpu_torch.metrics.compare",
-                           ref, deg], cwd=ROOT, capture_output=True, text=True, timeout=600,
-                          env={**os.environ, "PYTHONPATH": ROOT})
-    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    (code,) = finish_sessions([compare])
+    with open(compare.log_path) as f:
+        stdout = f.read()
+    line = stdout.strip().splitlines()[-1] if stdout.strip() else ""
     values = re.findall(r"(csig|cbak|covl|pesq|ssnr|stoi):\s*(\S+)", line)
-    if proc.returncode != 0 or len(values) != 6 or not finite(float(v) for _, v in values):
-        fail(f"metrics.compare: exit {proc.returncode}, last line {line!r}, {proc.stderr[-2000:]}")
+    if code != 0 or len(values) != 6 or not finite(float(v) for _, v in values):
+        fail(f"metrics.compare: exit {code}, last line {line!r}, {tail(compare.err_path, 2000)}")
     print(f"python -m prior_diffuse_tpu_torch.metrics.compare (clean test set vs phase 6's "
           f"--generate): {line}", flush=True)
     return paths
@@ -2517,38 +2492,62 @@ DP_EVAL_RTOL, DP_METRIC_RTOL = 2.5e-4, 1e-3
 DP_TIMEOUT = 300  # seconds for each group of processes
 
 
-def run_session(cmd: list, log_path: str, timeout: float = DP_TIMEOUT) -> subprocess.Popen:
-    """Start ``cmd`` from the checkout in a session of its own, output to
-    ``log_path``; wait with :func:`wait_sessions`."""
+def run_session(cmd: list, log_path: str, timeout: float = DP_TIMEOUT,
+                err_path: str = None) -> subprocess.Popen:
+    """Start ``cmd`` from the checkout in a session of its own, its output
+    to ``log_path`` (its errors too, or to ``err_path``); wait with
+    :func:`wait_sessions` or :func:`finish_sessions`, which kill it at
+    ``timeout`` seconds from now."""
     log = open(log_path, "w")
-    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+    err = open(err_path, "w") if err_path else None
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=err or subprocess.STDOUT,
                             env={**os.environ, "PYTHONPATH": ROOT}, start_new_session=True)
-    proc.log_path, proc.deadline = log_path, time.monotonic() + timeout
+    proc.log_path, proc.err_path = log_path, err_path or log_path
+    proc.deadline = time.monotonic() + timeout
     log.close()
+    if err:
+        err.close()
     return proc
 
 
-def wait_sessions(procs: list, what: str) -> None:
-    """Wait for every process of ``procs`` and all it started; at the first
-    deadline kill them all; fail unless each exited 0."""
+def kill_sessions(procs: list) -> None:
+    """Kill each process of ``procs`` with all it started (its session:
+    torchrun's worker too) and reap it; a session already gone is left."""
     import signal
 
+    for p in procs:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        p.wait()
+
+
+@booked("subprocess")
+def finish_sessions(procs: list) -> list:
+    """Wait for every process of ``procs``; at the first deadline kill them
+    all (:func:`kill_sessions`); returns their exit codes."""
     try:
         for p in procs:
             p.wait(timeout=max(1.0, p.deadline - time.monotonic()))
     except subprocess.TimeoutExpired:
         pass
     finally:
-        for p in procs:
-            try:
-                os.killpg(p.pid, signal.SIGKILL)  # the session: torchrun's worker too
-            except ProcessLookupError:
-                pass
-            p.wait()
-    for i, p in enumerate(procs):
-        if p.returncode != 0:
+        kill_sessions(procs)
+    return [p.returncode for p in procs]
+
+
+def wait_sessions(procs: list, what: str) -> None:
+    """:func:`finish_sessions`, then fail unless each exited 0."""
+    for i, (p, code) in enumerate(zip(procs, finish_sessions(procs))):
+        if code != 0:
             with open(p.log_path) as f:
-                fail(f"{what} [{i}] exited {p.returncode}:\n{f.read()[-3000:]}")
+                fail(f"{what} [{i}] exited {code}:\n{f.read()[-3000:]}")
+
+
+def tail(path: str, n: int) -> str:
+    with open(path) as f:
+        return f.read()[-n:]
 
 
 def dp_trainer(inp: dict, parallel=None):
@@ -2564,6 +2563,7 @@ def dp_trainer(inp: dict, parallel=None):
     return ComplexDDPMTrainer(run, exp, device=inp["rank_devices"][0], parallel=parallel)
 
 
+@booked("measure")
 def dp_ms(fn, device) -> float:
     """ms a call of ``fn``: CUDA events on the card (5 calls after 1), the
     host clock in a CPU rehearsal."""
@@ -2603,12 +2603,12 @@ def dp_step(tr, batch) -> dict:
     return rec
 
 
-def dp_run(tr, batches: dict, local_stats: tuple = ()) -> dict:
+def dp_run(tr, batches: dict, local_stats: tuple = (), timed: bool = False) -> dict:
     """From one state: a step on each global batch (``batches``: name -> this
     process's rows on the device; those named in ``local_stats`` with each
-    rank's own BatchNorm statistics, the control), the ms of a step on
-    ``batches["full"]``, and ``evaluate()`` with its records and launches
-    (rank 0 scores and writes)."""
+    rank's own BatchNorm statistics, the control), if ``timed`` the ms of a
+    step on ``batches["full"]``, and ``evaluate()`` with its records and
+    launches (rank 0 scores and writes)."""
     from prior_diffuse_tpu_torch.models import layers
 
     snap = copy.deepcopy(tr.ckpt_payload())
@@ -2620,8 +2620,9 @@ def dp_run(tr, batches: dict, local_stats: tuple = ()) -> dict:
                 out["steps"][name] = dp_step(tr, batch)
         else:
             out["steps"][name] = dp_step(tr, batch)
-    tr.restore_payload(copy.deepcopy(snap))
-    out["ms"] = dp_ms(lambda: tr._train_step(*batches["full"], norms=False), tr.device)
+    if timed:
+        tr.restore_payload(copy.deepcopy(snap))
+        out["ms"] = dp_ms(lambda: tr._train_step(*batches["full"], norms=False), tr.device)
     tr.restore_payload(copy.deepcopy(snap))
     reset_counts()
     t0 = time.perf_counter()
@@ -2661,7 +2662,7 @@ def dp_rank_main(rank: int, world: int, tmp: str) -> None:
         full = tr.put_batch(*inp["batch"])
         out = dp_run(tr, {"full": full, "control": full,
                           "ragged": tr.put_batch(*(a[:DP_RAGGED] for a in inp["batch"]))},
-                     local_stats=("control",))
+                     local_stats=("control",), timed=inp["timed"])
         out["loader_equal"] = loader_equal
         torch.save(out, os.path.join(tmp, f"out_{rank}.pt"))
     finally:
@@ -2748,22 +2749,74 @@ def dp_eval_held(got: dict, ref: dict) -> list:
     return misses
 
 
-def dp_ranks_phase(device, card, root: str, corpus: str, world: int = DP_WORLD,
-                   backend: str = "gloo", conf: str = None) -> dict:
-    """Phase 12a: the one-process run on this process (with its steps on the
-    perturbed batches, the floors), then the same run on ``world`` ranks,
-    held to it; returns the ranks' launch counts.  gloo ranks share
-    ``device``; NCCL ranks take a card each (``tools/dp_cards.py``).
-    ``conf`` (default conf/diff.yml) sets the global batch."""
+def dp_inputs(device, root: str, corpus: str, world: int, backend: str, conf: str,
+              timed: bool) -> tuple:
+    """``(inputs, trainer)``: phase 12's inputs for ``world`` ranks (the
+    backend, each rank's device, the yml, the first global batch of the
+    corpus, whether a rank times its step) and the one process's trainer
+    that drew that batch."""
     import torch
 
     devices = [str(device)] * world if backend == "gloo" else [f"cuda:{r}" for r in range(world)]
     inp = {"corpus": corpus, "root": root, "backend": backend, "rank_devices": devices,
-           "conf": conf or os.path.join(ROOT, "conf", "diff.yml")}
-    one = dp_trainer(inp)
-    b = next(iter(one.tr_loader))
+           "conf": conf or os.path.join(ROOT, "conf", "diff.yml"), "timed": timed}
+    with spent("setup"):
+        one = dp_trainer(inp)
+        b = next(iter(one.tr_loader))
     inp["batch"] = [torch.from_numpy(a) for a in (b.noisy, b.clean, b.frame_nums)]
-    rows = len(b.noisy)
+    return inp, one
+
+
+def dp_spawn(inp: dict, root: str) -> dict:
+    """Start the ranks of ``inp``, each a process of its own
+    (:func:`dp_rank_main`); :func:`dp_outputs` collects them."""
+    import torch
+
+    world = len(inp["rank_devices"])
+    tmp = os.path.join(root, f"dp_{inp['backend']}_{world}")
+    os.makedirs(tmp)
+    torch.save(inp, os.path.join(tmp, "in.pt"))
+    return {"tmp": tmp, "backend": inp["backend"], "t0": time.perf_counter(),
+            "procs": [run_session([sys.executable, os.path.abspath(__file__), "--dp-rank",
+                                   str(r), str(world), tmp], os.path.join(tmp, f"rank{r}.log"))
+                      for r in range(world)]}
+
+
+def dp_outputs(group: dict) -> tuple:
+    """``(outputs, seconds)``: each rank's results of :func:`dp_spawn`'s
+    ``group`` (failing unless every rank exited 0) and the group's wall
+    time."""
+    import torch
+
+    wait_sessions(group["procs"], f"{group['backend']} rank")
+    wall = time.perf_counter() - group["t0"]
+    return [torch.load(os.path.join(group["tmp"], f"out_{r}.pt"), weights_only=True)
+            for r in range(len(group["procs"]))], wall
+
+
+def dp_ranks_phase(device, card, root: str, corpus: str, world: int = DP_WORLD,
+                   backend: str = "gloo", conf: str = None, timed: bool = True) -> dict:
+    """Phase 12a: the one-process run on this process (with its steps on the
+    perturbed batches, the floors), then the same run on ``world`` ranks,
+    held to it; returns the ranks' launch counts.  gloo ranks share
+    ``device``; NCCL ranks take a card each (``tools/dp_cards.py``).
+    ``conf`` (default conf/diff.yml) sets the global batch; with ``timed``
+    each run also times its step (``chip_smoke.py`` leaves that to
+    ``tools/card_numbers.py``).  :func:`dp_ranks_start`, then
+    :func:`dp_ranks_finish`."""
+    return dp_ranks_finish(dp_ranks_start(device, card, root, corpus, world, backend, conf,
+                                          timed))
+
+
+def dp_ranks_start(device, card, root: str, corpus: str, world: int = DP_WORLD,
+                   backend: str = "gloo", conf: str = None, timed: bool = True) -> dict:
+    """Phase 12a's first half (:func:`dp_ranks_phase`): the one-process run,
+    then the ranks started; returns what :func:`dp_ranks_finish` holds them
+    to."""
+    import torch
+
+    inp, one = dp_inputs(device, root, corpus, world, backend, conf, timed)
+    rows = len(inp["batch"][0])
     if rows % world:  # the one process's cv batch is unpadded: its draws are the ranks' only so
         fail(f"{world} ranks do not divide the global batch of {rows}")
 
@@ -2778,26 +2831,26 @@ def dp_ranks_phase(device, card, root: str, corpus: str, world: int = DP_WORLD,
     for name, (noisy, clean, frames) in cases.items():
         batches[name] = one.put_batch(noisy, clean, frames)
         batches[f"{name}_floor"] = one.put_batch(jitter(noisy), jitter(clean), frames)
-    ref = dp_run(one, batches)
+    ref = dp_run(one, batches, timed=timed)
     lrs = {n: opt_of(one, n).param_groups[0]["lr"] for n in one.nets}
     del one, batches
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    return {"group": dp_spawn(inp, root), "ref": ref, "lrs": lrs, "rows": rows,
+            "world": world, "backend": backend, "card": card, "timed": timed}
 
-    tmp = os.path.join(root, f"dp_{backend}_{world}")
-    os.makedirs(tmp)
-    torch.save(inp, os.path.join(tmp, "in.pt"))
-    t0 = time.perf_counter()
-    wait_sessions([run_session([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
-                                str(world), tmp], os.path.join(tmp, f"rank{r}.log"))
-                   for r in range(world)], f"{backend} rank")
-    wall = time.perf_counter() - t0
-    outs = [torch.load(os.path.join(tmp, f"out_{r}.pt"), weights_only=True)
-            for r in range(world)]
+
+def dp_ranks_finish(run: dict) -> dict:
+    """Phase 12a's second half (:func:`dp_ranks_phase`): the ranks of
+    :func:`dp_ranks_start`'s ``run`` held to its one-process run; returns
+    their launch counts."""
+    ref, lrs, rows, world = run["ref"], run["lrs"], run["rows"], run["world"]
+    backend, card, timed = run["backend"], run["card"], run["timed"]
+    outs, wall = dp_outputs(run["group"])
     if not all(o["loader_equal"] for o in outs):
         fail("a rank's sharded train loader is not its rows of the one-process batch")
     steps = ref["steps"]
-    floors = {c: dp_distances(steps[f"{c}_floor"], steps[c], lrs) for c in cases}
+    floors = {c: dp_distances(steps[f"{c}_floor"], steps[c], lrs) for c in ("full", "ragged")}
     same = lambda got, want: got == {k: want.get(k, 0) for k in got}
     label = f"{world} {backend} ranks"
     misses, paths = [], {}
@@ -2829,17 +2882,17 @@ def dp_ranks_phase(device, card, root: str, corpus: str, world: int = DP_WORLD,
     ev = {k: v for rec in outs[0]["records"] for k, v in rec.items()}
     pace = ("the ranks share one card and gloo copies every collective through the host, so "
             "no scaling is claimed" if backend == "gloo" else "a card a rank")
+    ms = (f"step {ref['ms']:.3f} ms in one process, {outs[0]['ms']:.3f} ms on {label} (rank 0; "
+          f"CUDA events, 5 steps of {rows} x {LENGTH}; {pace}); " if timed else "")
     print(f"the control misses on: {', '.join(control)}; the ranks' nets hash alike after each "
           f"step; launches a step {[o['steps']['full']['counts'] for o in outs]} (one process "
           f"{steps['full']['counts']}); evaluate() of one cv batch of {rows}: cv loss "
           f"{outs[0]['cv_loss']:.6f} (one process {ref['cv_loss']:.6f}), prior_mse "
           f"{ev.get('test_prior_mse', float('nan')):.6f}, pesq "
           f"{ev.get('test_mean_pesq', float('nan')):.3f}, launches per rank "
-          f"{[o['eval_counts'] for o in outs]} (one process {ref['eval_counts']}); step "
-          f"{ref['ms']:.3f} ms in one process, {outs[0]['ms']:.3f} ms on {label} (rank 0; CUDA "
-          f"events, 5 steps of {rows} x {LENGTH}; {pace}); evaluate() "
-          f"{ref['eval_wall']:.2f} s / {outs[0]['eval_wall']:.2f} s wall; {wall:.1f} s for the "
-          f"ranks' processes; card {card}", flush=True)
+          f"{[o['eval_counts'] for o in outs]} (one process {ref['eval_counts']}); {ms}"
+          f"evaluate() {ref['eval_wall']:.2f} s / {outs[0]['eval_wall']:.2f} s wall; "
+          f"{wall:.1f} s for the ranks' processes; card {card}", flush=True)
     if misses:
         fail("data-parallel step or evaluation: " + "; ".join(misses))
     return paths
@@ -2849,29 +2902,47 @@ def dp_nccl_cli_phase(root: str, corpus: str, card, nproc: int = 1, conf: str = 
     """Phase 12b: ``python -m torch.distributed.run --standalone
     --nproc_per_node=NPROC -m prior_diffuse_tpu_torch.cli``, NCCL, a card a
     rank: one epoch of ``conf`` (default conf/diff.yml; rank 0 writes the
-    log, metrics and checkpoints), then ``--generate``."""
-    import torch
+    log, metrics and checkpoints), then ``--generate``.
+    :func:`dp_nccl_cli_start`, then :func:`dp_nccl_cli_finish`."""
+    dp_nccl_cli_finish(dp_nccl_cli_start(root, corpus, card, nproc, conf))
 
+
+def dp_nccl_cli_start(root: str, corpus: str, card, nproc: int = 1, conf: str = None) -> dict:
+    """Phase 12b's first half (:func:`dp_nccl_cli_phase`): the epoch's
+    ``torch.distributed.run`` started in a session of its own; returns what
+    :func:`dp_nccl_cli_finish` needs."""
     from prior_diffuse_tpu_torch.config import load_experiment
-    from prior_diffuse_tpu_torch.data.wavio import read_wav
 
     with open(conf or os.path.join(ROOT, "conf", "diff.yml")) as f:
         text = f.read()
     conf = os.path.join(root, f"diff_dp{nproc}_1_epoch.yml")
     with open(conf, "w") as f:
         f.write(text.replace("n_epochs: 50", "n_epochs: 1"))
-    batch = load_experiment(conf).train.batch_size
     assets = os.path.join(root, f"cli_nccl{nproc}")
     args = [sys.executable, "-m", "torch.distributed.run", "--standalone",
             f"--nproc_per_node={nproc}", "-m", "prior_diffuse_tpu_torch.cli", "--config", conf,
             "--joint", "--sigma", "--data-root", corpus, "--assets", assets, "--seed", "11"]
-    walls = []
-    for extra in ([], ["--generate"]):
-        t0 = time.perf_counter()
-        wait_sessions([run_session(args + extra,
-                                   os.path.join(root, f"nccl{nproc}_{len(walls)}.log"))],
-                      "torch.distributed.run " + " ".join(extra))
-        walls.append(time.perf_counter() - t0)
+    return {"args": args, "assets": assets, "corpus": corpus, "card": card, "nproc": nproc,
+            "batch": load_experiment(conf).train.batch_size, "t0": time.perf_counter(),
+            "proc": run_session(args, os.path.join(root, f"nccl{nproc}_0.log"))}
+
+
+def dp_nccl_cli_finish(run: dict) -> None:
+    """Phase 12b's second half (:func:`dp_nccl_cli_phase`): the epoch of
+    :func:`dp_nccl_cli_start`'s ``run`` waited for, then ``--generate``;
+    their logs, metrics, checkpoints and wavs checked."""
+    import torch
+
+    from prior_diffuse_tpu_torch.data.wavio import read_wav
+
+    args, assets, corpus, card = run["args"], run["assets"], run["corpus"], run["card"]
+    nproc, batch = run["nproc"], run["batch"]
+    wait_sessions([run["proc"]], "torch.distributed.run ")
+    walls = [time.perf_counter() - run["t0"]]
+    t0 = time.perf_counter()
+    log = os.path.join(os.path.dirname(run["proc"].log_path), f"nccl{nproc}_1.log")
+    wait_sessions([run_session(args + ["--generate"], log)], "torch.distributed.run --generate")
+    walls.append(time.perf_counter() - t0)
     log_dir = os.path.join(assets, "log", "diff")
     with open(os.path.join(log_dir, "stdout.txt")) as f:
         log = f.read()
@@ -2907,9 +2978,17 @@ def dp_nccl_cli_phase(root: str, corpus: str, card, nproc: int = 1, conf: str = 
 
 def dp_phase(device, card, root: str, corpus: str) -> dict:
     """Phase 12: data parallelism (12a on gloo, 12b on NCCL); returns the
-    gloo ranks' launch counts."""
-    paths = dp_ranks_phase(device, card, root, corpus)
-    dp_nccl_cli_phase(root, corpus, card)
+    gloo ranks' launch counts.  12a's ranks and 12b's command line share
+    nothing but the card and the corpus they read, so they run at once,
+    each process held to the same checks as when they ran in turn; every
+    process this starts is gone when it returns or fails."""
+    ranks = dp_ranks_start(device, card, root, corpus, timed=False)
+    cli_run = dp_nccl_cli_start(root, corpus, card)
+    try:
+        paths = dp_ranks_finish(ranks)
+        dp_nccl_cli_finish(cli_run)
+    finally:
+        kill_sessions(ranks["group"]["procs"] + [cli_run["proc"]])
     return paths
 
 
@@ -2919,6 +2998,7 @@ def dp_phase(device, card, root: str, corpus: str) -> dict:
 SHARE_MAX = 1.05
 
 
+@booked("setup")
 def roofline_paths(device, nets, priors, root: str, corpus: str) -> dict:
     """Phase 13's programs, as a user calls them, by name: the serving batch
     of phase 3 (``Enhancer.enhance_batch``, 8 x 3 s, fast-6) in f32 and
@@ -3091,11 +3171,12 @@ def demo_run(device, card, root: str, bf16: bool) -> tuple:
             "--eval-every", str(STEPS_A), "--log-every", str(DEMO_LOG_EVERY),
             "--assets", assets, "--device", "cuda"] + (["--bf16"] if bf16 else [])
     args = train_demo.parse_args(argv)
-    train_demo.write_corpus(args)
-    # the prior's cv MSE at step 0: a trainer of stage A's seed and config
-    fresh = _setup.trainer(os.path.join(root, f"step0_{tag}"), "demo",
-                           train_demo.experiment(args), device, joint=True, sigma=True,
-                           data_root=_setup.corpus_dir(assets))
+    with spent("setup"):
+        train_demo.write_corpus(args)
+        # the prior's cv MSE at step 0: a trainer of stage A's seed and config
+        fresh = _setup.trainer(os.path.join(root, f"step0_{tag}"), "demo",
+                               train_demo.experiment(args), device, joint=True, sigma=True,
+                               data_root=_setup.corpus_dir(assets))
     b = next(iter(fresh.cv_loader))
     prior0 = float(fresh._eval_step(*fresh.put_batch(b.noisy, b.clean, b.frame_nums))[3][
         "prior_mse"])
@@ -3374,17 +3455,24 @@ def main() -> None:
     torch.set_grad_enabled(False)  # inference only
     device = torch.device("cuda:0")
 
-    b = build.build()
+    with spent("setup"):
+        b = build.build()
+        build.library()
     print(f"build: {b.path.name} in {b.seconds:.2f} s", flush=True)
     for line in b.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip(), flush=True)
-    build.library()
 
     from prior_diffuse_tpu_torch.models.diffunet import Nocon
 
     t0 = time.perf_counter()
-    mark = lambda phase: print(f"[{time.perf_counter() - t0:.1f} s] phase {phase}", flush=True)
+
+    def mark(phase) -> None:
+        ACCOUNTS.phase(str(phase))
+        print(f"[{time.perf_counter() - t0:.1f} s] phase {phase}", flush=True)
+
+    # one set of seeded nets for every phase: no phase trains them (the
+    # trainers hold copies of their weights)
     nets = seeded_nets(0, device)
     denoisers = {"deltamu": seeded_nets(1, device, (Nocon,))[0], "conditional": nets[1]}
     mark(2)
@@ -3393,7 +3481,7 @@ def main() -> None:
     paths = {}
     mark(3)
     for dtype in (torch.float32, torch.bfloat16):
-        paths.update(run_main_path(device, *nets, card, dtype))
+        paths.update(run_main_path(device, *nets, dtype))
     mark(4)
     serve_requests(device, nets, torch.float32)
     serve_requests(device, nets, torch.bfloat16)
@@ -3401,16 +3489,15 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         mark(5)
         corpus = write_train_corpus(root)
-        paths["train_step"], paths["evaluate_cv_batch"], train_rows, step_launches = \
+        paths["train_step"], paths["evaluate_cv_batch"], train_rows = \
             train_phase(device, card, root, corpus)
         mark(6)
         paths["cli_train"], paths["cli_generate"] = cli_phase(root, corpus, card)
         mark(7)
         for mode, ddpm in denoisers.items():
             for dtype in (torch.float32, torch.bfloat16):
-                paths.update(run_main_path(device, nets[0], ddpm, card, dtype, mode,
-                                           (False, True) if mode == "deltamu" else (False,),
-                                           deep=False))
+                paths.update(run_main_path(device, nets[0], ddpm, dtype, mode,
+                                           (False, True) if mode == "deltamu" else (False,)))
         bf16_card_vs_cpu(device, nets[0], {"pirorgrad": nets[1], **denoisers})
         for mode in MODES:
             paths[f"train_step_{mode}"], paths[f"evaluate_cv_batch_{mode}"] = \
@@ -3419,16 +3506,14 @@ def main() -> None:
         priors = prior_nets(device)
         paths.update(prior_phase(device, card, root, corpus, nets[1], priors))
         mark(9)
-        paths.update(grn_phase(device, card, root, corpus))
-        diffwave_phase(device, card)
-        paths.update(bf16_prior_phase(device, card, priors, nets[1]))
+        grn = grn_net(device)
+        paths.update(grn_phase(device, card, root, corpus, grn))
+        diffwave_phase(device)
+        paths.update(bf16_prior_phase(device, priors, nets[1]))
         mark(10)
-        from prior_diffuse_tpu_torch.models.grn import GRN
-
-        paths.update(bf16_train_phase(device, card, root, corpus,
-                                      {**priors, "GRN": seeded_nets(60, device, (GRN,))[0]}))
+        paths.update(bf16_train_phase(device, card, root, corpus, {**priors, "GRN": grn}))
         mark(11)
-        paths.update(tooling_phase(device, card, root, corpus, step_launches))
+        paths.update(tooling_phase(device, card, root, corpus))
         mark(12)
         paths.update(dp_phase(device, card, root, corpus))
         mark(13)
@@ -3461,6 +3546,7 @@ def main() -> None:
                 "launches_by_path": {p: c.get(name, 0) for p, c in paths.items()},
                 **rows[name], **({"train_slice": train_rows[name]} if name in train_rows else {})}
                for name, (route, src, rep, path) in meta.items()]
+    print(json.dumps(ACCOUNTS.line()), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
