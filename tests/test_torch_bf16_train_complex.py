@@ -15,9 +15,14 @@ Queue 3).  JAX's largest sample / the port, GCRN: losses 4.0e-5 / 4.5e-5,
 statistics 2.2e-5 / 2.3e-5, gradient 2.2e-2 / 2.2e-2, updates 4.2e-3 /
 4.3e-3; ``aia_complex_trans_ri``: 7.2e-5 / 4.0e-5, gradient 8.0e-2 /
 8.1e-2, updates 5.3e-3 / 6.0e-3; GRN: losses 7.8e-4 / 4.3e-4, statistics
-2.1e-3 / 3.7e-3, gradient 4.0e-2 / 6.9e-2, updates 5.1e-3 / 8.4e-4 (GRN's
-port sits ~2x further than JAX's own samples in its gradient, the front
-end's kernels most: ROADMAP Queue 3).
+2.1e-3 / 3.7e-3, gradient 4.0e-2 / 6.9e-2, updates 5.1e-3 / 8.4e-4.
+GRN's port sits ~2x further than those samples: it first leaves JAX's
+forward at ``dila2``, where it sums the conv's float32 products in
+another order (``python3 tools/grn_front_probe.py forward --ops``;
+``test_torch_bf16_grn_front.py``), which neither sample varies; JAX's own
+step with only the front end's summation order changed (its channels
+permuted) sits further still, gradient 8.0e-2, statistics 4.0e-3, flips
+1.3e-2 (``tools/grn_front_probe.py step``; ROADMAP Queue 3).
 
 Evaluation (JAX's ``_eval_step``: the estimate in the prior's own dtype,
 bf16 for GCRN and the RI variant, f32 for GRN, which casts back) within

@@ -33,7 +33,9 @@ norm passes within its relative bound or within its share of the net's
 largest group norm.  The share of the gradient's norm whose sign flips is
 printed by the probe, not bounded: it follows the gradient's relative L2,
 which is, and GRN's (8.6e-3) sits above twice JAX's (3.9e-3), as its
-gradient sits near the bound (ROADMAP Queue 3).
+gradient sits near the bound: its convs sum in another order than XLA's,
+which these samples do not vary (``test_torch_bf16_train_complex.py``;
+ROADMAP Queue 3).
 
 * the eval step after it (JAX's ``_eval_step`` on the new state: the
   bf16-compute modules with two decoders, ``x_init`` divided by ``c`` in
@@ -226,8 +228,8 @@ def step_pair(case: str, tmp, corpus: str = None) -> dict:
         state, *ls, gn = jtr._train_step(jax.tree.map(jnp.array, start), *args)
         return jax_run(case, state, ls, gn)
 
-    return dict(case=case, jtr=jtr, tr=tr, batch=batch, state0=state0, eager=eager,
-                perturbed=perturbed,
+    return dict(case=case, jtr=jtr, tr=tr, batch=batch, state0=state0, start=start,
+                arrays=arrays, eager=eager, perturbed=perturbed,
                 want=jax_run(case, jstate, losses, gnorms),
                 got=port_run(case, tr, got_losses, got_gnorms),
                 after=copy.deepcopy(tr.ckpt_payload()))

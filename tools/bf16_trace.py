@@ -6,6 +6,7 @@ bfloat16, and how close the port's bf16 serving copy comes to it.
     python3 tools/bf16_trace.py --train [NAME ...]
     python3 tools/bf16_trace.py --parity [NAME ...]
     python3 tools/bf16_trace.py --sensitivity
+    python3 tools/bf16_trace.py --bn [NAME ...]
 
 The JAX package serves a prior in ``serve_dtype`` bfloat16 by casting every
 parameter and BatchNorm statistic to bf16 and feeding a bf16 input
@@ -40,6 +41,16 @@ port's bf16 serving copy against JAX's jitted bf16 forward and against the
 same forward run op by op (``jax.disable_jit``: every op rounded to its
 dtype), of those two JAX runs against each other, and of JAX's bf16
 against its f32 forward (a few minutes: the op-by-op runs are slow).
+
+``--bn``: which train-mode BatchNorms of JAX's jitted bf16-compute train
+forward read their bf16 input as it is.  For each model of ``--train`` (and
+``dual_train_forward`` for the DiffUNet family), on the variables and
+inputs of ``tests/test_torch_bf16_train.py`` (B = 2, T = 12; non-zero conv
+biases), every BatchNorm's output is compared with the same flax BatchNorm
+run alone, jitted, on the bf16 input the forward fed it (relative RMS):
+0 where the program rounded that input to bf16 first, as the port does;
+about 1e-3 or more where XLA kept the producer's last add in float32 (a
+flax module's output rounding dropped inside a fusion).
 
 ``--sensitivity``: with ``chip_smoke.py``'s seeded weights (the port only),
 how far the bf16 prior-only server and the bf16 enhancer (GCRN and
@@ -138,6 +149,50 @@ def train_trace(name: str, train: bool = True, dual: bool = False) -> dict:
     return rows
 
 
+def bn_rounding(name: str, dual: bool = False) -> list:
+    """``--bn``'s rows for ``name``: ``(BatchNorm path, relative RMS of its
+    output from the BatchNorm alone on its bf16 input)``."""
+    import flax.linen as nn
+    import jax
+    import jax.numpy as jnp
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from prior_diffuse_tpu.models.fused_forward import dual_train_forward
+    from test_torch_bf16_train import make_model
+
+    jm, _, variables, _, args = make_model(name)
+    seen = []
+
+    def icpt(next_fun, a, kw, context):
+        out = next_fun(*a, **kw)
+        m = context.module
+        if (context.method_name == "__call__" and isinstance(m, nn.BatchNorm)
+                and not m.use_running_average and a[0].dtype == jnp.bfloat16):
+            seen.append(("/".join(m.path), m.clone(parent=None), a[0], out,
+                         m.variables["params"]))
+        return out
+
+    def fwd(v, *a):
+        seen.clear()
+        with nn.intercept_methods(icpt):
+            if dual:
+                x, rest = a[0], dict(zip(("x_init", "t") if len(a) == 3 else ("t",), a[1:]))
+                dual_train_forward(v, x, dtype=jnp.bfloat16, num_steps=50, **rest)
+            else:
+                jm.apply(v, *a, train=True, mutable=["batch_stats"])
+        return [(x, y, p) for _, _, x, y, p in seen]
+
+    outs = jax.jit(fwd)(variables, *[jnp.asarray(a) for a in args])
+    rows = []
+    for (path, bn, *_), (x, y, params) in zip(seen, outs):
+        stats = {"mean": jnp.zeros(x.shape[-1]), "var": jnp.ones(x.shape[-1])}
+        alone = jax.jit(lambda v, x: bn.apply(v, x, mutable=["batch_stats"])[0])(
+            {"params": params, "batch_stats": stats}, x)
+        f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))  # noqa: E731
+        rows.append((path, _rel_rms(f32(y), f32(alone))))
+    return rows
+
+
 def _print_rows(rows) -> None:
     for path, ops in sorted(rows.items()):
         f32 = any("f32" in op.split("->")[0] for op in ops)
@@ -219,6 +274,21 @@ def main(argv=None) -> None:
     mode = args.pop(0) if args and args[0].startswith("--") else "--trace"
     if mode == "--sensitivity":
         sensitivity()
+        return
+    if mode == "--bn":
+        for name in args or TRAIN_MODELS:
+            for dual in ((False, True) if name in ("DiffUNet", "DiffUNet1", "Nocon")
+                         else (False,)):
+                rows = bn_rounding(name, dual)
+                kept = defaultdict(list)
+                for path, dist in rows:
+                    kept[dist > 1e-4].append(re.sub(r"\d+", "#", path))
+                label = f"{name}{' dual_train_forward' if dual else ''}"
+                print(f"{label}: {len(rows)} bf16 BatchNorms; input rounded to bf16 "
+                      f"(<= 1e-4 from the BatchNorm alone): {len(kept[False])}; kept above "
+                      f"bf16: {len(kept[True])} "
+                      f"{sorted(set(kept[True]))}; largest "
+                      f"{max((d for _, d in rows), default=0.0):.3e}", flush=True)
         return
     if mode == "--train":
         for name in args or TRAIN_MODELS:
