@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from prior_diffuse_tpu_torch.diffusion.schedule import InferenceSchedule
+from prior_diffuse_tpu_torch.utils.profiler import span
 
 # model_fn(x_t [B, T, F, 2], t [B] float32) -> network output, with the
 # conditioning closed over
@@ -130,16 +131,17 @@ def reverse_sample(
         if mode == "deltamu":
             x = x + x_init
         for step, n in enumerate(range(n_steps - 1, -1, -1)):
-            t_vec = torch.full((batch,), t_steps[n], dtype=dt, device=x_init.device)
-            out = model_fn(x, t_vec)
-            if predict == "x0":
-                eps = (x - sqrt_ab[n] * out) * rsqrt_1mab[n]
-            else:
-                eps = out
-            x = c1[n] * (x - c2[n] * eps)
-            if not noiseless and n > 0:  # step n = 0 adds no noise
-                z = noise[i, step]
-                x = x + new_sigma[n] * (z if scale is None else z * scale)
+            with span("enh.step", x_init.device):
+                t_vec = torch.full((batch,), t_steps[n], dtype=dt, device=x_init.device)
+                out = model_fn(x, t_vec)
+                if predict == "x0":
+                    eps = (x - sqrt_ab[n] * out) * rsqrt_1mab[n]
+                else:
+                    eps = out
+                x = c1[n] * (x - c2[n] * eps)
+                if not noiseless and n > 0:  # step n = 0 adds no noise
+                    z = noise[i, step]
+                    x = x + new_sigma[n] * (z if scale is None else z * scale)
         chains.append(x + x_init if mode == "pirorgrad" else x)
     if len(chains) == 1:
         return chains[0]

@@ -35,10 +35,12 @@ from prior_diffuse_tpu_torch.models.precision import compute_view
 from prior_diffuse_tpu_torch.parallel.distributed import is_main
 from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
 from prior_diffuse_tpu_torch.serving.enhancer import (ComputeEnhancer, serving_copy,
-                                                      serving_device, weights_key)
+                                                      serving_device, upload_batch,
+                                                      weights_key)
 from prior_diffuse_tpu_torch.signal.compress import decompress_spec, from_mag_phase
 from prior_diffuse_tpu_torch.signal.normalize import rms_scale
 from prior_diffuse_tpu_torch.training.base import mag_features, spec_features
+from prior_diffuse_tpu_torch.utils.profiler import count, span, tracing
 
 
 def _ladder_pad(longest: int, bucket_samples: int) -> int:
@@ -102,22 +104,28 @@ class PriorServer:
         key = weights_key(net)
         if key != self._key:
             self._net, self._key = serving_copy(net, self.dtype), key
+            count("enh.repacks")
         return self._net
 
     @torch.no_grad()
     def prior(self, feat: torch.Tensor) -> torch.Tensor:
         """Compressed spectrum ``feat [B, T, 161, 2]`` -> the prior's
         estimate, in the server's dtype."""
-        return self.net()(feat.to(self.dtype))
+        with span("enh.prior"):
+            return self.net()(feat.to(self.dtype))
 
     @torch.no_grad()
     def enhance_batch(self, wav, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``wav [B, L]`` -> ``[B, L]`` float32.  Draws nothing: the
         generator is taken and not used."""
-        wav = torch.as_tensor(wav, dtype=torch.float32).to(self.device).contiguous()
-        est = self.prior(spec_features(wav, self.cfg.train))
-        spec = decompress_spec(est.float(), self.cfg.train.feat_type)
-        return kstft.istft(spec.contiguous(), wav.shape[-1])
+        with span("enh.batch"):
+            wav = upload_batch(wav, self.device)
+            with span("enh.features"):
+                feat = spec_features(wav, self.cfg.train)
+            est = self.prior(feat)
+            with span("enh.istft"):
+                spec = decompress_spec(est.float(), self.cfg.train.feat_type)
+                return kstft.istft(spec.contiguous(), wav.shape[-1])
 
 
 class MagServer(PriorServer):
@@ -136,11 +144,15 @@ class MagServer(PriorServer):
     @torch.no_grad()
     def enhance_batch(self, wav, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``wav [B, L]`` -> ``[B, L]`` float32.  Draws nothing."""
-        wav = torch.as_tensor(wav, dtype=torch.float32).to(self.device).contiguous()
-        feat, phase = mag_features(wav, self.cfg.train)
-        spec = decompress_spec(from_mag_phase(self.prior(feat).float(), phase),
-                               self.cfg.train.feat_type)
-        return kstft.istft(spec.contiguous(), wav.shape[-1])
+        with span("enh.batch"):
+            wav = upload_batch(wav, self.device)
+            with span("enh.features"):
+                feat, phase = mag_features(wav, self.cfg.train)
+            est = self.prior(feat)
+            with span("enh.istft"):
+                spec = decompress_spec(from_mag_phase(est.float(), phase),
+                                       self.cfg.train.feat_type)
+                return kstft.istft(spec.contiguous(), wav.shape[-1])
 
 
 def prior_only_server(enhancer, dtype: Optional[torch.dtype] = None) -> PriorServer:
@@ -172,17 +184,23 @@ def enhance_files(enhancer, wavs: List[np.ndarray], generator: torch.Generator,
     batch_size = batch_size or _train_cfg(enhancer).batch_size
     lengths = [len(w) for w in wavs]
     results: List[Optional[np.ndarray]] = [None] * len(wavs)
-    for idx, rows, pad_to in _buckets(lengths, batch_size, bucket_samples):
-        batch = np.zeros((rows, pad_to), np.float32)
-        scales = np.zeros(len(idx), np.float64)
-        for row, j in enumerate(idx):
-            with np.errstate(divide="ignore"):  # an all-zero wav: scale inf
-                c = max(1.0 / float(rms_scale(wavs[j])), 1e-12)
-            batch[row, : lengths[j]] = wavs[j] / c
-            scales[row] = c
-        out = enhancer.enhance_batch(batch, generator).cpu().numpy()
-        for row, j in enumerate(idx):
-            results[j] = (out[row, : lengths[j]] * scales[row]).astype(np.float32)
+    with span("front.call"):
+        for idx, rows, pad_to in _buckets(lengths, batch_size, bucket_samples):
+            with span("front.prepare"):
+                batch = np.zeros((rows, pad_to), np.float32)
+                scales = np.zeros(len(idx), np.float64)
+                for row, j in enumerate(idx):
+                    with np.errstate(divide="ignore"):  # an all-zero wav: scale inf
+                        c = max(1.0 / float(rms_scale(wavs[j])), 1e-12)
+                    batch[row, : lengths[j]] = wavs[j] / c
+                    scales[row] = c
+            if tracing():
+                count("front.audio_samples", sum(lengths[j] for j in idx))
+                count("front.padded_samples", rows * pad_to)
+            out = enhancer.enhance_batch(batch, generator).cpu().numpy()
+            with span("front.finish"):
+                for row, j in enumerate(idx):
+                    results[j] = (out[row, : lengths[j]] * scales[row]).astype(np.float32)
     return results  # type: ignore[return-value]
 
 

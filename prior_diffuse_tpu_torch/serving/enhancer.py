@@ -61,6 +61,7 @@ from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
 from prior_diffuse_tpu_torch.parallel.mesh import draw_rows
 from prior_diffuse_tpu_torch.signal.compress import decompress_spec
 from prior_diffuse_tpu_torch.training.base import spec_features
+from prior_diffuse_tpu_torch.utils.profiler import count, span
 
 
 def weights_key(*modules) -> tuple:
@@ -69,6 +70,12 @@ def weights_key(*modules) -> tuple:
     version counter): caches of operands derived from them compare it."""
     return tuple((t.data_ptr(), t._version)
                  for m in modules for t in [*m.parameters(), *m.buffers()])
+
+
+def upload_batch(wav, device: torch.device) -> torch.Tensor:
+    """A host batch ``wav [B, L]`` on ``device``, float32 and contiguous."""
+    with span("enh.upload"):
+        return torch.as_tensor(wav, dtype=torch.float32).to(device).contiguous()
 
 
 def serving_device(device) -> torch.device:
@@ -185,6 +192,7 @@ class Enhancer:
                            pack_unet(self.ddpm, self.dtype, dual))
             self._prior_copy = None if packed else serving_copy(self.dis, self.dtype)
             self._pack_key = key
+            count("enh.repacks")
         return self._packs
 
     @torch.no_grad()
@@ -192,10 +200,11 @@ class Enhancer:
         """The prior's estimate of the compressed spectrum ``feat [B, T,
         161, 2]`` in the enhancer's dtype: the packed ``DiffUNet``, or
         another prior's :func:`serving_copy` (its module forward)."""
-        pack_dis, _ = self.packs()
-        feat = feat.to(self.dtype)
-        return (self._prior_copy(feat) if pack_dis is None
-                else fused_unet_forward(pack_dis, feat))
+        with span("enh.prior"):
+            pack_dis, _ = self.packs()
+            feat = feat.to(self.dtype)
+            return (self._prior_copy(feat) if pack_dis is None
+                    else fused_unet_forward(pack_dis, feat))
 
     @torch.no_grad()
     def enhance_batch(self, wav, generator: Optional[torch.Generator] = None,
@@ -207,10 +216,14 @@ class Enhancer:
         noise, for a schedule that has any) come from ``generator``, a
         ``torch.Generator`` on this device, in the enhancer's dtype, unless
         ``x_T`` is given (it is cast to that dtype)."""
-        wav = torch.as_tensor(wav, dtype=torch.float32).to(self.device).contiguous()
-        est, _ = self.chain(spec_features(wav, self.cfg.train), generator, x_T)
-        spec = decompress_spec(est, self.cfg.train.feat_type)
-        return kstft.istft(spec.contiguous(), wav.shape[-1])
+        with span("enh.batch"):
+            wav = upload_batch(wav, self.device)
+            with span("enh.features"):
+                feat = spec_features(wav, self.cfg.train)
+            est, _ = self.chain(feat, generator, x_T)
+            with span("enh.istft"):
+                spec = decompress_spec(est, self.cfg.train.feat_type)
+                return kstft.istft(spec.contiguous(), wav.shape[-1])
 
     @torch.no_grad()
     def chain(self, feat: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -318,7 +331,8 @@ class ComputeEnhancer(Enhancer):
         ``c`` in the prior's dtype, its sigma mask in that dtype too)."""
         diff = self.cfg.diffusion
         dis, ddpm = (v.eval() for v in self.views)
-        out = dis(feat)
+        with span("enh.prior"):
+            out = dis(feat)
         x_init = (out if prior_dtype_x_init else out.float()) / diff.scale_c
         sig = sigma_mask(x_init) if self.sigma else None
         cond = self.conditioner(feat, diff.scale_c, x_init)

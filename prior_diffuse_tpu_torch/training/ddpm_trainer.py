@@ -79,7 +79,7 @@ from prior_diffuse_tpu_torch.training.base import (TrainerBase, grad_groups,
                                                    group_grad_norms, sharded, spec_features)
 from prior_diffuse_tpu_torch.training.optim import get_lr, set_lr, torch_adam
 from prior_diffuse_tpu_torch.utils.logging import MetricsLogger
-from prior_diffuse_tpu_torch.utils.profiler import StepTimer, trace
+from prior_diffuse_tpu_torch.utils.profiler import StepTimer, span, trace
 
 
 def seeded_nets(seed: int, num_steps: int, cond_channels: int, mode: str = "pirorgrad",
@@ -171,50 +171,57 @@ class ComplexDDPMTrainer(TrainerBase):
         group the tensors are this rank's rows and the losses and norms
         returned are the global batch's."""
         cfg, joint, sigma = self.cfg, self.run.joint, self.run.sigma
-        feat = spec_features(noisy, cfg)
-        label = spec_features(clean, cfg)
-        self.dis_train.train()
-        self.ddpm_train.train()
-        with torch.enable_grad():
-            with torch.set_grad_enabled(joint):
-                dis_out = self._dis_forward(feat).float()
-            if joint:
-                loss_dis = self.loss_fn(dis_out, label, frame_nums)
-            else:
-                loss_dis = torch.zeros((), device=self.device)
-            x_init = dis_out.detach() / self.c
-            lbl = label / self.c
-            sig = sigma_mask(x_init) if sigma else None
-            x_t, noise, t = q_sample(
-                lbl, x_init, self.alpha_bar, self.num_steps, self.mode, sig,
-                t_grid=self.t_grid, ab_grid=self.ab_grid,
-                leak_drop=self.x0_leak_drop, generator=self.gen, draws=draws)
-            cond = self.enhancer.conditioner(feat, self.c, x_init)
-            pred = self._ddpm_forward(x_t, cond, t).float()
-            if self.predict == "x0":
-                # the chain's clean-side quantity: the residual the sampler
-                # adds back onto x_init (pirorgrad), the clean spectrum
-                # (conditional)
-                target = lbl - x_init if self.mode == "pirorgrad" else lbl
-            else:
-                target = noise
-            if sigma:
-                loss_ddpm = com_mse_sigma_loss(pred, target, frame_nums, sig)
-            else:
-                loss_ddpm = self.loss_fn(pred, target, frame_nums)
-            total = cfg.lam * loss_ddpm + loss_dis
-            self.opt_dis.zero_grad(set_to_none=True)
-            self.opt_ddpm.zero_grad(set_to_none=True)
-            total.backward()
-        self.sum_grads()
-        gnorms = {}
-        if norms:
-            for n, groups in self.grad_groups.items():
-                gnorms.update(group_grad_norms(groups, n))
-        self.opt_ddpm.step()
-        if joint:
-            self.opt_dis.step()
-        return (*global_shares(total.detach(), loss_dis.detach(), loss_ddpm.detach()), gnorms)
+        with span("train.step", self.device):
+            with span("train.features", self.device):
+                feat = spec_features(noisy, cfg)
+                label = spec_features(clean, cfg)
+            self.dis_train.train()
+            self.ddpm_train.train()
+            with span("train.forward", self.device), torch.enable_grad():
+                with torch.set_grad_enabled(joint):
+                    dis_out = self._dis_forward(feat).float()
+                if joint:
+                    loss_dis = self.loss_fn(dis_out, label, frame_nums)
+                else:
+                    loss_dis = torch.zeros((), device=self.device)
+                x_init = dis_out.detach() / self.c
+                lbl = label / self.c
+                sig = sigma_mask(x_init) if sigma else None
+                x_t, noise, t = q_sample(
+                    lbl, x_init, self.alpha_bar, self.num_steps, self.mode, sig,
+                    t_grid=self.t_grid, ab_grid=self.ab_grid,
+                    leak_drop=self.x0_leak_drop, generator=self.gen, draws=draws)
+                cond = self.enhancer.conditioner(feat, self.c, x_init)
+                pred = self._ddpm_forward(x_t, cond, t).float()
+                if self.predict == "x0":
+                    # the chain's clean-side quantity: the residual the sampler
+                    # adds back onto x_init (pirorgrad), the clean spectrum
+                    # (conditional)
+                    target = lbl - x_init if self.mode == "pirorgrad" else lbl
+                else:
+                    target = noise
+                if sigma:
+                    loss_ddpm = com_mse_sigma_loss(pred, target, frame_nums, sig)
+                else:
+                    loss_ddpm = self.loss_fn(pred, target, frame_nums)
+                total = cfg.lam * loss_ddpm + loss_dis
+            with span("train.backward", self.device):
+                with torch.enable_grad():
+                    self.opt_dis.zero_grad(set_to_none=True)
+                    self.opt_ddpm.zero_grad(set_to_none=True)
+                    total.backward()
+                self.sum_grads()
+            gnorms = {}
+            if norms:
+                with span("train.norms", self.device):
+                    for n, groups in self.grad_groups.items():
+                        gnorms.update(group_grad_norms(groups, n))
+            with span("train.optimizer", self.device):
+                self.opt_ddpm.step()
+                if joint:
+                    self.opt_dis.step()
+            return (*global_shares(total.detach(), loss_dis.detach(), loss_ddpm.detach()),
+                    gnorms)
 
     def _dis_forward(self, feat):
         """The prior's train-mode forward (JAX ``_dis_apply``, train)."""

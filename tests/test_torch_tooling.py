@@ -2,7 +2,8 @@
 
 * ``utils/profiler.py``: ``train_ddpm`` with ``run.profile_steps = 2``
   writes a Chrome trace of exactly its first 2 steps under
-  ``<log_dir>/trace`` and takes the third untraced; ``flops_estimate`` of a
+  ``<log_dir>/trace``, and ``spans.json`` of their spans, and takes the
+  third untraced; ``flops_estimate`` of a
   product equals JAX's XLA cost analysis of it; ``StepTimer`` gives JAX's
   step times, mean and items/sec on one clock; ``nan_guard`` toggles
   autograd's anomaly detection;
@@ -103,6 +104,19 @@ def test_profile_steps_trace_the_first_steps(corpus, tmp_path):
     names = [e.get("name", "") for e in events]
     assert sum(n.startswith("Optimizer.step#Adam.step") for n in names) == 4
     assert any(n == "aten::convolution" for n in names)
+    # spans.json beside it: the traced steps' phases (the norms on step 0 only)
+    with open(os.path.join(run.log_dir, "trace", "spans.json")) as f:
+        report = json.load(f)
+    calls = {k: v["calls"] for k, v in report["spans"].items()}
+    assert calls == {"train.step": 2, "train.features": 2, "train.forward": 2,
+                     "train.backward": 2, "train.norms": 1, "train.optimizer": 2}
+    for v in report["spans"].values():
+        assert 0 <= v["self_host_s"] <= v["host_s"] and v["stream_ms"] is None
+        assert v["launches"] == 0 and v["device_busy_s"] == 0  # no CUDA activity
+    # one request a step, split by phase; the capture's counters
+    assert [(r["name"], "train.norms" in r["spans"]) for r in report["requests"]] == [
+        ("train.step", True), ("train.step", False)]
+    assert {"kernel.k1", "kernel.k2", "kernel.k3", "kernel.k3_bf16"} <= set(report["counters"])
 
 
 @pytest.mark.parametrize("shapes", [((8, 16), (16, 4)), ((3, 5, 7), (7, 9))],
