@@ -46,6 +46,10 @@ Phases (each passes or ends the script with a non-zero exit):
 4. five requests of 1-4 s through ``serving.enhance.enhance_files`` in f32
    and bf16; one 30 s wav through ``serving.streaming.enhance_long`` in bf16
    (finite, seam-free) and through ``prior_only_server`` (K1 and K2 only);
+   one 45-segment bf16 recording through ``enhance_long`` in blocks of 32,
+   its blocks replayed as CUDA graphs, against the same call eager at the
+   same padding (bit for bit), with both ms and the ``enh.graph_*``
+   counters;
 5. training at full width: ``ComplexDDPMTrainer`` of ``conf/diff.yml``
    (batch 6 x 48000, ``--joint --sigma``, weights from a seed) on a
    synthetic corpus of 24 + 8 utterances of 3-4 s. K1 against its plain
@@ -973,11 +977,16 @@ def run_main_path(device, dis, ddpm, dtype, mode: str = "pirorgrad",
         out = enh.enhance_batch(wav, torch.Generator(device=device).manual_seed(4))
         torch.cuda.synchronize()
         path = serve_path(dis, mode, dtype, sigma)
-        counts[path] = expect_counts(f"one batch [{label}]", want)
-        with plain_versions():
-            ref = enh.enhance_batch(wav, torch.Generator(device=device).manual_seed(4))
+        if enh._graphs:  # a first batch on the card runs eagerly, then is captured
+            counts[path] = expect_counts(f"one batch [{label}], its eager run and its capture",
+                                         {k: 2 * v for k, v in want.items()})
+        else:
+            counts[path] = expect_counts(f"one batch [{label}]", want)
+        reset_counts()
+        with plain_versions():  # op by op: a bf16 replay would run the kernels
+            ref = enh.eager_batch(wav, torch.Generator(device=device).manual_seed(4))
         torch.cuda.synchronize()
-        if read_counts() != counts[path]:
+        if any(read_counts().values()):
             fail("the plain reference run launched a kernel")
         if out.shape != (BATCH, LENGTH) or out.dtype != torch.float32:
             fail(f"enhance_batch [{label}] returned {tuple(out.shape)} {out.dtype}")
@@ -1105,8 +1114,10 @@ def serve_long(device, nets, card) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         k3 = 35 * blocks if server is enh else 0  # the prior-only server: the module forward
-        counts[name] = expect_counts(name, {"stft": blocks, "istft": blocks,
-                                            "enc_stage_bf16": k3})
+        want = {"stft": blocks, "istft": blocks, "enc_stage_bf16": k3}
+        if server is enh and enh._graphs:  # each block ran eagerly, then was captured
+            want = {k: 2 * v for k, v in want.items()}
+        counts[name] = expect_counts(name, want)
         if out.shape != wav.shape or not np.isfinite(out).all():
             fail(f"{name} returned {out.shape} for {wav.shape} or non-finite values")
         jumps = np.abs(np.diff(out))
@@ -1120,6 +1131,111 @@ def serve_long(device, nets, card) -> dict:
         if ratio > 4.0:
             fail(f"{name}: the crossfade joins jump")
     return counts
+
+
+RECORDING_SEGMENTS = 45  # a block of 32 and one of 13: the recordings cell's longest
+
+
+def serve_recording(device, nets, card) -> dict:
+    """Phase 4c: one 45-segment bf16 recording (~119 s) through
+    ``enhance_long`` in blocks of 32 segments, whose blocks replay the CUDA
+    graphs of their rungs (32 rows, and 13 rows padded to 16), against the
+    same call with every graph's capture and replay its eager forward on
+    the same static buffers (eager at the same padding): bit for bit; the
+    replayed call's kernels from a device trace (K1 2, K2 2, K3-bf16 70;
+    a replay runs no wrapper, so the wrappers' counters stay), its
+    ``enh.graph_*`` counters under that trace (2 replays, 0 captures, 3 pad
+    rows), and both calls' ms (host clock; each ends in the read-back).
+    Returns the traced launch counts."""
+    import torch
+
+    from prior_diffuse_tpu_torch.config import ExperimentConfig, TrainConfig
+    from prior_diffuse_tpu_torch.serving.enhancer import BatchGraph, Enhancer
+    from prior_diffuse_tpu_torch.serving.streaming import enhance_long
+    from prior_diffuse_tpu_torch.utils import profiler
+
+    segment, overlap = LENGTH, LENGTH // 10
+    wav = 0.1 * speechlike(1, (RECORDING_SEGMENTS - 1) * (segment - overlap) + overlap + 1000,
+                           21)[0]
+    cfg = ExperimentConfig(train=TrainConfig(batch_size=32))
+
+    def call(enh):
+        t0 = time.perf_counter()
+        out = enhance_long(enh, wav, torch.Generator(device=device).manual_seed(12),
+                           segment=segment, overlap=overlap)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    graphed = Enhancer(*nets, cfg, device=device, dtype=torch.bfloat16)
+    eager = Enhancer(*nets, cfg, device=device, dtype=torch.bfloat16)
+    with spent("setup"):
+        call(graphed)  # the eager run and capture of each rung
+    if sorted(graphed._graphs) != [(16, segment), (32, segment)]:
+        fail(f"enhance_long [graphed] kept the graphs {sorted(graphed._graphs)}")
+    reset_counts()
+    with spent("measure"):
+        got, graph_ms = call(graphed)
+    expect_counts("enhance_long [graphed, 45 segments], the wrappers' counters", {})
+
+    def replayed() -> dict:  # the program's graph counters of one traced call
+        call(graphed)
+        return {k: v for k, v in profiler.counters().items() if k.startswith("enh.graph_")}
+
+    profiler.reset()
+    counted, counts = traced_counts("enhance_long [graphed, 45 segments]", replayed,
+                                    {"stft": 2, "istft": 2, "enc_stage_bf16": 70})
+    profiler.reset()
+    with mock.patch.object(BatchGraph, "capture", BatchGraph.forward), \
+            mock.patch.object(BatchGraph, "replay", BatchGraph.forward):
+        with spent("setup"):
+            call(eager)
+        with spent("measure"):
+            want, eager_ms = call(eager)
+    diff = float(np.max(np.abs(got - want)))
+    print(f"enhance_long [bf16, {RECORDING_SEGMENTS} segments of {segment}, blocks of 32]: "
+          f"graphed {graph_ms:.1f} ms, eager at the same padding {eager_ms:.1f} ms; "
+          f"max|graphed - eager| {diff:.3e} (bound 0); counters {counted}; card {card}",
+          flush=True)
+    if diff != 0:
+        fail("enhance_long: the graphed recording differs from the eager one")
+    want_counters = {"enh.graph_replays": 2, "enh.graph_captures": 0, "enh.graph_pad_rows": 3}
+    if {k: counted.get(k, 0) for k in want_counters} != want_counters:
+        fail(f"enhance_long [graphed]: counters {counted}, expected {want_counters}")
+    return {"enhance_long_graphed_bf16": counts}
+
+
+def traced_launches(prof) -> dict:
+    """Each hand-written kernel's launches in a finished profile, by the
+    name of its wrapper (:func:`counters`), counted from the device trace
+    (a CUDA-graph replay runs the kernels without their wrappers)."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    kernels = {"stft": "stft_kernel", "istft": "istft_kernel", "enc_stage": "enc_chain_kernel",
+               "enc_stage_bf16": "enc_chain_bf16_kernel"}
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    return {k: sum(bool(re.search(rf"(^|::|\s){kernels[k]}[<(]", n)) for n in names)
+            for k in counters()}
+
+
+def traced_counts(what: str, fn, want: dict) -> tuple:
+    """Run ``fn`` under a device trace and fail unless its hand-written
+    kernels ran ``want`` times (a kernel it leaves out: 0): the count of a
+    path that replays a CUDA graph, whose kernels run without their
+    wrappers.  Returns ``fn``'s result and the counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    got = traced_launches(prof)
+    want = {k: want.get(k, 0) for k in got}
+    print(f"launches in {what}, from the device trace: {got}", flush=True)
+    if got != want:
+        fail(f"launch counts in {what}: {got} on the device, expected {want}")
+    return out, got
 
 
 def reset_counts() -> None:
@@ -2999,12 +3115,15 @@ SHARE_MAX = 1.05
 
 
 @booked("setup")
-def roofline_paths(device, nets, priors, root: str, corpus: str) -> dict:
+def roofline_paths(device, nets, priors, root: str, corpus: str,
+                   served: dict | None = None) -> dict:
     """Phase 13's programs, as a user calls them, by name: the serving batch
-    of phase 3 (``Enhancer.enhance_batch``, 8 x 3 s, fast-6) in f32 and
-    bf16; ``conf/diff.yml``'s ``--joint --sigma`` train step (6 x 48000,
-    group norms off, as on 49 of 50 loop steps) in f32 and in bf16 compute,
-    each on a fresh trainer; and the GCRN and ``aia_complex_trans_ri``
+    of phase 3 (``Enhancer.eager_batch``, the batch op by op, 8 x 3 s,
+    fast-6, for its count; into ``served``, if given, the same batch as
+    served, ``enhance_batch``, which bf16 replays as a CUDA graph) in f32
+    and bf16; ``conf/diff.yml``'s ``--joint --sigma`` train
+    step (6 x 48000, group norms off, as on 49 of 50 loop steps) in f32 and
+    in bf16 compute, each on a fresh trainer; and the GCRN and ``aia_complex_trans_ri``
     priors alone (``ComplexTrainer``'s ``PriorServer``) on the batch of
     phase 3.  Also ``tools/roofline_enhance.py``'s."""
     import torch
@@ -3020,8 +3139,11 @@ def roofline_paths(device, nets, priors, root: str, corpus: str) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         enh = Enhancer(*nets, device=device, dtype=dtype)
         enh.packs()  # packing is not a batch's work
-        paths[f"serve_{str(dtype)[6:]}"] = (
-            lambda enh=enh: enh.enhance_batch(wav, gen.manual_seed(5)))
+        paths[f"serve_{str(dtype)[6:]}"] = (  # op by op: a count sees no replay's ops
+            lambda enh=enh: enh.eager_batch(wav, gen.manual_seed(5)))
+        if served is not None:
+            served[f"serve_{str(dtype)[6:]}"] = (
+                lambda enh=enh: enh.enhance_batch(wav, gen.manual_seed(5)))
     exp = load_experiment(os.path.join(ROOT, "conf", "diff.yml"))
     for tag, e in (("float32", exp), ("bfloat16", bf16_exp(exp))):
         run = RunConfig(seed=7, joint=True, sigma=True, data_root=corpus,
@@ -3041,7 +3163,8 @@ def roofline_phase(device, card, nets, priors, root: str, corpus: str) -> None:
     ``utils/roofline.py`` on the card (its kernels routed through their
     plain versions by ``analyze``), and counted again under
     :func:`plain_versions` (the same model FLOPs, or the routing failed);
-    its ms (CUDA events, mean of 5 after 2) and device ms (profiler);
+    its ms (CUDA events, mean of 5 after 2) and device ms (profiler), of
+    the serving batches as served (bf16: the graph's replay);
     its ceilings and the shares ``attained_fraction`` and ``mfu`` of both
     times, each at most ``SHARE_MAX``, against the card's own entry of
     ``CHIP_SPECS`` (an unknown card fails)."""
@@ -3052,7 +3175,8 @@ def roofline_phase(device, card, nets, priors, root: str, corpus: str) -> None:
     spec = chip_spec(device)
     if spec is None:
         fail(f"no roofline entry for {torch.cuda.get_device_name(device)}")
-    for name, fn in roofline_paths(device, nets, priors, root, corpus).items():
+    served = {}
+    for name, fn in roofline_paths(device, nets, priors, root, corpus, served).items():
         rep = analyze(fn)
         with plain_versions():
             plain = analyze(fn)
@@ -3062,8 +3186,9 @@ def roofline_phase(device, card, nets, priors, root: str, corpus: str) -> None:
             fail(f"roofline [{name}]: {t['model_flops']:.0f} model FLOPs through the kernels' "
                  f"entry points, {plain.totals(spec)['model_flops']:.0f} through the plain "
                  "versions")
-        ms = cuda_ms(fn, iters=5, warmup=2)
-        dev = device_ms(fn, calls=2)
+        run = served.get(name, fn)  # the first warm-up call of a bf16 batch captures its graph
+        ms = cuda_ms(run, iters=5, warmup=2)
+        dev = device_ms(run, calls=2)
         shares = {clock: rep.totals(spec, v / 1e3) for clock, v in (("event", ms), ("device", dev))
                   if v is not None}
         print(f"roofline [{name}]: {t['model_flops'] / 1e9:.3f} model GFLOP, "
@@ -3128,15 +3253,16 @@ def per_call_counts(log: list, targets):
 
 def expect_calls(what: str, log: list, label: str, want, n: int = None) -> int:
     """Fail unless each logged call ``label`` launched ``want(self)`` (a
-    dict; a kernel it leaves out: 0), and (if given) there were ``n``."""
+    dict, or a list of the dicts it may match; a kernel a dict leaves out:
+    0), and (if given) there were ``n``."""
     calls = [(s, d) for lab, s, d in log if lab == label]
     if n is not None and len(calls) != n:
         fail(f"{what}: {len(calls)} calls of {label}, expected {n}")
     for s, d in calls:
         w = want(s)
-        w = {k: w.get(k, 0) for k in d}
-        if d != w:
-            fail(f"{what}: a call of {label} launched {d}, expected {w}")
+        w = [{k: x.get(k, 0) for k in d} for x in (w if isinstance(w, list) else [w])]
+        if d not in w:
+            fail(f"{what}: a call of {label} launched {d}, expected one of {w}")
     return len(calls)
 
 
@@ -3293,8 +3419,13 @@ def sweep_run(device, card, assets: str, bf16: bool) -> dict:
     servers = {}
     for label, s, _ in log:
         servers.setdefault(0 if label == "prior_only" else s.sched.num_steps, s)
+    per_batch = lambda s: {"stft": 1, "istft": 1, k3: 5 * (1 + s.sched.num_steps)}  # noqa: E731
+    # bf16 on the card: a shape's first batch runs eagerly and captures its
+    # graph (each wrapper called twice), a replay calls none (phase 4c counts
+    # a replay's kernels on the device)
     expect_calls(f"eval_schedules [{tag}]", log, "enhance",
-                 lambda s: {"stft": 1, "istft": 1, k3: 5 * (1 + s.sched.num_steps)})
+                 lambda s: [{k: 2 * v for k, v in per_batch(s).items()}, {}] if s._graphs
+                 else per_batch(s))
     expect_calls(f"eval_schedules [{tag}]", log, "prior_only",
                  lambda s: {"stft": 1, "istft": 1})
     if [r["steps"] for r in rows] != [0, 2, 3, 4, 6, 8, 50] or sorted(servers) != [
@@ -3319,9 +3450,18 @@ def sweep_run(device, card, assets: str, bf16: bool) -> dict:
     x_T = torch.randn((1, BATCH, T_FRAMES, 161, 2), generator=g, device=device)
     reset_counts()
     got = enh.enhance_batch(wav, x_T=x_T)
-    expect_counts(f"full-50 [{tag}] batch", {"stft": 1, "istft": 1, k3: 255})
+    want = {"stft": 1, "istft": 1, k3: 255}
+    if enh._graphs:  # a first batch of its shape runs eagerly and is captured, a replay calls none
+        got_counts = read_counts()
+        print(f"launches in full-50 [{tag}] batch: {got_counts}", flush=True)
+        if got_counts not in ({k: 2 * want.get(k, 0) for k in got_counts},
+                              {k: 0 for k in got_counts}):
+            fail(f"launch counts in full-50 [{tag}] batch: {got_counts}, expected twice "
+                 f"{want} (a capture) or none (a replay)")
+    else:
+        expect_counts(f"full-50 [{tag}] batch", want)
     with plain_versions():
-        want = enh.enhance_batch(wav, x_T=x_T)
+        want = enh.eager_batch(wav, x_T=x_T)
     if bf16:
         err = rel_rms(got, want)
         print(f"full-50 [bf16] batch through the kernels vs the plain versions: relative "
@@ -3486,6 +3626,7 @@ def main() -> None:
     serve_requests(device, nets, torch.float32)
     serve_requests(device, nets, torch.bfloat16)
     paths.update(serve_long(device, nets, card))
+    paths.update(serve_recording(device, nets, card))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         mark(5)
         corpus = write_train_corpus(root)
@@ -3539,10 +3680,12 @@ def main() -> None:
     # the serving shapes (batch 8 x 3 s), then (f32) the training slice's
     count = lambda path, name: sum(paths[p].get(name, 0) for p in
                                    (("cli_train", "cli_generate") if path == "cli" else (path,)))
-    batch = lambda name: "serve_batch_bf16" if name == "enc_stage_bf16" else "serve_batch"
+    # (the bf16 batch's count is its first call's: its eager run and its capture)
+    per_batch = lambda name: (paths["serve_batch_bf16"][name] // 2 if name == "enc_stage_bf16"
+                              else paths["serve_batch"][name])
     kernels = [{"name": name, "route": route, "source": src, "replaces": rep,
                 "launches": count(path, name), "launches_path": path,
-                "launches_per_batch": paths[batch(name)][name],
+                "launches_per_batch": per_batch(name),
                 "launches_by_path": {p: c.get(name, 0) for p, c in paths.items()},
                 **rows[name], **({"train_slice": train_rows[name]} if name in train_rows else {})}
                for name, (route, src, rep, path) in meta.items()]

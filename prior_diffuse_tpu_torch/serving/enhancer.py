@@ -33,6 +33,15 @@ statistic changes.  Steps 2-4 are
 :meth:`Enhancer.chain`, which the trainer's evaluation runs on its
 spectra too.
 
+In bfloat16 on the card a batch is host-paced (thousands of short
+launches), so there steps 1-5 run as one CUDA graph replay
+(:class:`BatchGraph`): one graph per ``(rung, length)``, the batch's rows
+padded with zeros to :func:`batch_rung`, captured from the same code at
+the first batch of its shape, the draws taken eagerly at the batch's own
+shape and copied into the graph's buffers, every graph dropped when the
+packs are repacked.  float32 and the CPU run op by op
+(:meth:`Enhancer.eager_batch`).
+
 A model *trained* in bf16 (``train.compute_dtype: bfloat16``) is not served
 so: :class:`ComputeEnhancer` runs it as the JAX package evaluates and serves
 it by default (``serve_dtype`` float32): the prior and the denoiser as their
@@ -46,6 +55,7 @@ from __future__ import annotations
 import copy
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -60,6 +70,7 @@ from prior_diffuse_tpu_torch.models.precision import compute_view
 from prior_diffuse_tpu_torch.ops.cuda import stft as kstft
 from prior_diffuse_tpu_torch.parallel.mesh import draw_rows
 from prior_diffuse_tpu_torch.signal.compress import decompress_spec
+from prior_diffuse_tpu_torch.signal.stft import frame_count
 from prior_diffuse_tpu_torch.training.base import spec_features
 from prior_diffuse_tpu_torch.utils.profiler import count, span
 
@@ -70,6 +81,18 @@ def weights_key(*modules) -> tuple:
     version counter): caches of operands derived from them compare it."""
     return tuple((t.data_ptr(), t._version)
                  for m in modules for t in [*m.parameters(), *m.buffers()])
+
+
+# a graphed batch's rows are padded up to a multiple of ROW_RUNG (batch_rung)
+ROW_RUNG = 4
+
+
+def batch_rung(rows: int) -> int:
+    """The rows of the graph that serves a batch of ``rows``: ``rows``
+    rounded up to a multiple of :data:`ROW_RUNG` (over the recordings
+    cell's pool the padding adds 4.4 % of the segment work, against 30
+    graphs for the exact row counts)."""
+    return -(-rows // ROW_RUNG) * ROW_RUNG
 
 
 def upload_batch(wav, device: torch.device) -> torch.Tensor:
@@ -177,6 +200,15 @@ class Enhancer:
         self._pack_key = None
         self._packs = None
         self._prior_copy = None
+        # bfloat16 on the card: the batch graphs by (rung, length), the pack
+        # key they were captured on, the memory pool they share and the
+        # stream they are captured on (the caching allocator reuses a block
+        # only on the stream that freed it: one stream lets each capture
+        # reuse what the earlier ones freed)
+        self._graphs = {}
+        self._graphs_key = None
+        self._graph_pool = None
+        self._static_draws = None
 
     def packs(self):
         """``(prior, denoiser)`` operands of :func:`fused_unet_forward` in
@@ -215,15 +247,61 @@ class Enhancer:
         The chain's initial draws ``x_T [n_avg, B, T, 161, 2]`` (and step
         noise, for a schedule that has any) come from ``generator``, a
         ``torch.Generator`` on this device, in the enhancer's dtype, unless
-        ``x_T`` is given (it is cast to that dtype)."""
+        ``x_T`` is given (it is cast to that dtype).  A bfloat16 enhancer on
+        the card replays the batch as a CUDA graph (:class:`BatchGraph`):
+        the same operations on ``B`` rows padded to :func:`batch_rung`."""
+        if self.dtype == torch.bfloat16 and self.device.type == "cuda":
+            with span("enh.batch"):
+                return self._graphed_batch(wav, generator, x_T)
+        return self.eager_batch(wav, generator, x_T)
+
+    @torch.no_grad()
+    def eager_batch(self, wav, generator: Optional[torch.Generator] = None,
+                    x_T: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """:meth:`enhance_batch` op by op on the batch's own rows, never
+        through a graph: the path of float32 and of the CPU, and what an
+        operation count or a kernels-against-plain-versions check runs."""
         with span("enh.batch"):
-            wav = upload_batch(wav, self.device)
-            with span("enh.features"):
-                feat = spec_features(wav, self.cfg.train)
-            est, _ = self.chain(feat, generator, x_T)
-            with span("enh.istft"):
-                spec = decompress_spec(est, self.cfg.train.feat_type)
-                return kstft.istft(spec.contiguous(), wav.shape[-1])
+            return self._forward(upload_batch(wav, self.device), generator, x_T)
+
+    def _forward(self, wav: torch.Tensor, generator, x_T) -> torch.Tensor:
+        """The batch's device work on ``wav [B, L]`` already on the device:
+        features, :meth:`chain`, ISTFT."""
+        with span("enh.features"):
+            feat = spec_features(wav, self.cfg.train)
+        est, _ = self.chain(feat, generator, x_T)
+        with span("enh.istft"):
+            spec = decompress_spec(est, self.cfg.train.feat_type)
+            return kstft.istft(spec.contiguous(), wav.shape[-1])
+
+    def _graphed_batch(self, wav, generator=None, x_T=None) -> torch.Tensor:
+        """:meth:`enhance_batch` through the graph of its rung and length:
+        the draws taken eagerly at the batch's own shape (the generator
+        advances as on the eager path), placed into the graph's static
+        buffers, then one replay, or at a shape's first call its eager run
+        and capture.  Every graph is dropped when the weights change."""
+        self.packs()
+        if self._pack_key != self._graphs_key:
+            self._graphs, self._graphs_key, self._graph_pool = {}, self._pack_key, None
+        rows, length = np.shape(wav)
+        key = (batch_rung(rows), length)
+        graph = self._graphs.get(key)
+        fresh = graph is None
+        if fresh:
+            graph = self._graphs[key] = BatchGraph(self, *key)
+        with span("enh.upload"):
+            graph.load_wav(wav)
+        graph.load_draws(*self._draws((rows, frame_count(length), kstft.FREQ, 2),
+                                       generator, x_T))
+        count("enh.graph_pad_rows", key[0] - rows)
+        if fresh:
+            count("enh.graph_captures")
+            out = graph.capture()
+        else:
+            count("enh.graph_replays")
+            with span("enh.replay", self.device):
+                out = graph.replay()
+        return out[:rows].clone()
 
     @torch.no_grad()
     def chain(self, feat: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -272,6 +350,12 @@ class Enhancer:
     def _draws(self, shape, generator, x_T):
         """The chain's step noise (None for a noiseless schedule) and initial
         draws ``x_T`` (drawn unless given, then cast) in the chain's dtype."""
+        if self._static_draws is not None:  # a graph's forward reads its buffers
+            for d in self._static_draws:
+                if d is not None and tuple(d.shape[-4:]) != tuple(shape):
+                    raise ValueError(f"the graph's draws are {tuple(d.shape)}, the chain "
+                                     f"runs on {tuple(shape)}")
+            return self._static_draws
         diff = self.cfg.diffusion
         noise = None
         if not is_noiseless(self.sched):
@@ -290,6 +374,86 @@ class Enhancer:
             raise ValueError("pass a torch.Generator: the chain draws random numbers")
         return draw_rows(lambda s: torch.randn(s, generator=generator, device=self.device,
                                                dtype=self.dtype), shape, batch_dim)
+
+
+class BatchGraph:
+    """One CUDA graph of :meth:`Enhancer.enhance_batch`'s device work
+    (features, prior, conditioner, chain, ISTFT) at ``rung`` rows of
+    ``length`` samples, captured from the eager code itself: its static
+    input ``wav``, its static draws (allocated at the first
+    :meth:`load_draws`) and its static output.  The rows past a batch's
+    are zeros in the input and the draws.  A replay runs no Python, so the
+    kernel wrappers' ``.launches`` count the eager run and the capture, not
+    the replays (a device trace sees the replayed kernels)."""
+
+    def __init__(self, enhancer: Enhancer, rung: int, length: int):
+        self.enhancer = enhancer
+        self.rows = rung
+        self.wav = torch.zeros((rung, length), dtype=torch.float32, device=enhancer.device)
+        self.draws = None
+        self.graph = None
+        self.out = None
+
+    def load_wav(self, wav) -> None:
+        """Copy the batch ``wav [B, L]`` into the first ``B`` input rows and
+        zero the rest."""
+        src = torch.as_tensor(wav, dtype=torch.float32)
+        self.wav[:src.shape[0]].copy_(src)
+        self.wav[src.shape[0]:].zero_()
+
+    def load_draws(self, noise: Optional[torch.Tensor], x_T: Optional[torch.Tensor]) -> None:
+        """Copy the batch's draws (either None where the chain takes none)
+        into the first rows of the static ones (rows along dimension 2 of
+        ``noise``, 1 of ``x_T``, as :meth:`Enhancer._draws` draws them) and
+        zero the rest."""
+        if self.draws is None:
+            self.draws = tuple(
+                None if d is None else
+                d.new_zeros((*d.shape[:dim], self.rows, *d.shape[dim + 1:]))
+                for d, dim in ((noise, 2), (x_T, 1)))
+        for buf, d, dim in zip(self.draws, (noise, x_T), (2, 1)):
+            if (buf is None) != (d is None):
+                raise ValueError("the batch's draws differ from the graph's")
+            if d is None:
+                continue
+            head = buf.narrow(dim, 0, d.shape[dim])
+            if head.shape != d.shape:
+                raise ValueError(f"draws of {tuple(d.shape)} for a graph of "
+                                 f"{tuple(buf.shape)}")
+            head.copy_(d)
+            buf.narrow(dim, d.shape[dim], self.rows - d.shape[dim]).zero_()
+
+    def forward(self) -> torch.Tensor:
+        """The eager device work on the static input and draws."""
+        enh = self.enhancer
+        enh._static_draws = self.draws
+        try:
+            return enh._forward(self.wav, None, None)
+        finally:
+            enh._static_draws = None
+
+    def capture(self) -> torch.Tensor:
+        """Run :meth:`forward` once eagerly on a side stream (lazy
+        initialisation, cuDNN's choices), then capture it into the
+        enhancer's shared memory pool, both on the enhancer's capture stream;
+        returns the eager run's output."""
+        enh = self.enhancer
+        if enh._graph_pool is None:
+            enh._graph_pool = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(enh.device))
+        pool, side = enh._graph_pool
+        side.wait_stream(torch.cuda.current_stream(enh.device))
+        with torch.cuda.stream(side):
+            out = self.forward()
+        torch.cuda.current_stream(enh.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool, stream=side):
+            self.out = self.forward()
+        return out
+
+    def replay(self) -> torch.Tensor:
+        """Replay the graph; its static output, overwritten by the next."""
+        self.graph.replay()
+        return self.out
 
 
 class ComputeEnhancer(Enhancer):

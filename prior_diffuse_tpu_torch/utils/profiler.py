@@ -132,7 +132,9 @@ class _Span:
             rec.request = reg.requests
         else:
             rec.request = rec.parent.request
-        if rec.device is not None and rec.device.type == "cuda":
+        if (rec.device is not None and rec.device.type == "cuda"
+                and not (torch.cuda.is_available()
+                         and torch.cuda.is_current_stream_capturing())):
             rec.events = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
             rec.events[0].record()
@@ -158,7 +160,8 @@ def span(name: str, device=None):
     CUDA device, CUDA events on the current stream (the process's device:
     ranks set theirs) whose elapsed time is the span's stream
     milliseconds; a span of host work passes no device and records no
-    events.  No synchronisation."""
+    events, nor does a span inside a CUDA-graph capture (its work runs at
+    the replays).  No synchronisation."""
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _Span(name, device)

@@ -14,7 +14,9 @@ without a CUDA card.  In ``chip_smoke.py``'s phase order:
    (profiler), kernel launches and the top kernels; each plain batch's
    layer times (STFT, prior, a chain step, the chain, ISTFT);
 4. a second call of ``enhance_long`` on the 30 s wav (bf16 enhancer and
-   its prior-only server), wall ms;
+   its prior-only server), wall ms; the bf16 enhancer's CUDA graphs: each
+   first batch's seconds with its capture at 4-32 rows of 3 s and 16 of
+   12 s, and the memory the eight graphs of 3 s hold;
 5. ``conf/diff.yml``'s trainer (``--joint --sigma``, 6 x 48000): 10 steps
    (CUDA events, after 2) with utterances/s, peak memory and the host
    clock's median of 5; one step's device ms, launches and top kernels;
@@ -87,16 +89,21 @@ def serve_numbers(device, card, dis, ddpm, dtype, mode: str = "pirorgrad",
         enh = Enhancer(dis, ddpm, cs.mode_config(mode), device=device, sigma=sigma, dtype=dtype)
         gen = torch.Generator(device=device).manual_seed(5)
         batch = lambda: enh.enhance_batch(wav, gen)  # noqa: E731
+        eager = lambda: enh.eager_batch(wav, gen)  # noqa: E731
         ms = cs.cuda_ms(batch, iters=10, warmup=2)
+        # bf16 replays a CUDA graph: its op-by-op time beside it
+        op_by_op = (f" (op by op {cs.cuda_ms(eager, iters=10, warmup=2):.3f} ms)"
+                    if dtype == torch.bfloat16 else "")
         if sigma and not deep:
-            print(batch_line(label, ms, card), flush=True)
+            print(batch_line(label, ms, card, op_by_op), flush=True)
             continue
         with cs.plain_versions():
-            plain_ms = cs.cuda_ms(batch, iters=5, warmup=1)
+            plain_ms = cs.cuda_ms(eager, iters=5, warmup=1)
         dev = cs.device_ms(batch, calls=3)
         top, launches = cs.top_kernels(batch)
-        print(batch_line(label, ms, card, f" (plain versions {plain_ms:.3f} ms); device "
-                         f"{cs.fmt(dev)} ms, {launches} kernel launches a batch"), flush=True)
+        print(batch_line(label, ms, card, f"{op_by_op} (plain versions {plain_ms:.3f} ms); "
+                         f"device {cs.fmt(dev)} ms, {launches} kernel launches a batch"),
+              flush=True)
         if not sigma:
             if deep:
                 layer_times(enh, wav, card, label)
@@ -164,6 +171,44 @@ def long_numbers(device, nets, card) -> None:
             walls.append((time.perf_counter() - t0) * 1e3)
         print(f"{name}: {cs.LONG_SECONDS} s, {walls[0]:.1f} ms wall incl. host, again "
               f"{walls[1]:.1f} ms; card {card}", flush=True)
+
+
+def graph_numbers(device, nets, card) -> None:
+    """The bf16 enhancer's CUDA graphs: the host seconds of each shape's
+    first ``enhance_batch`` (its eager run and its capture) at the
+    recordings cell's eight rungs of 3 s (4-32 rows, in the ascending order
+    in which its warm-up meets them), then at a bf16 files stream's longest
+    (16 rows of 12 s); after the eight, the allocated and reserved bytes
+    and the bytes of the graphs' shared pool."""
+    import torch
+
+    from prior_diffuse_tpu_torch.config import ExperimentConfig, TrainConfig
+    from prior_diffuse_tpu_torch.serving.enhancer import Enhancer
+
+    enh = Enhancer(*nets, ExperimentConfig(train=TrainConfig(batch_size=32)), device=device,
+                   dtype=torch.bfloat16)
+    enh.packs()
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    def first_call(rows: int, length: int) -> float:
+        wav = (0.1 * np.random.default_rng(rows).standard_normal((rows, length))).astype(
+            np.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enh.enhance_batch(wav, gen)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    seconds = {rows: first_call(rows, cs.LENGTH) for rows in range(4, 33, 4)}
+    pool = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(enh._graph_pool[0]))
+    print("bf16 graphs: first batch with its capture, rows x 3 s: "
+          + ", ".join(f"{r} {t:.3f} s" for r, t in seconds.items())
+          + f"; after {len(enh._graphs)} graphs allocated "
+          f"{torch.cuda.memory_allocated(device) / 1e9:.3f} GB, reserved "
+          f"{torch.cuda.memory_reserved(device) / 1e9:.3f} GB, the graphs' pool "
+          f"{pool / 1e9:.3f} GB; 16 x 12 s {first_call(16, 4 * cs.LENGTH):.3f} s; card {card}",
+          flush=True)
 
 
 def timed_steps(tr, batches, card, iters: int = 10, label: str = "joint, sigma") -> None:
@@ -393,6 +438,7 @@ def main(argv=None) -> None:
         serve_numbers(device, card, *nets, dtype, deep=True)
     mark(4)
     long_numbers(device, nets, card)
+    graph_numbers(device, nets, card)
     exp32 = load_experiment(os.path.join(ROOT, "conf", "diff.yml"))
     with tempfile.TemporaryDirectory(prefix="card_numbers_") as root:
         corpus = cs.write_train_corpus(root)

@@ -6,7 +6,7 @@
 
 The counterpart of ``scripts/roofline_enhance.py``.  It builds, with seeded
 weights (``chip_smoke.py``'s), the programs of ``chip_smoke.py``'s phase 13
-(``roofline_paths``): the serving batch ``Enhancer.enhance_batch`` (8 x 3 s,
+(``roofline_paths``): the serving batch ``Enhancer.eager_batch`` (8 x 3 s,
 fast-6) in f32 and bf16, ``conf/diff.yml``'s ``--joint --sigma`` train step
 (6 x 48000) in f32 and bf16 compute, and the GCRN and
 ``aia_complex_trans_ri`` priors alone, plus GRN through ``MagServer``; it
